@@ -1,0 +1,35 @@
+"""qiskit_dynamics_tpu_torch: the PyTorch/CUDA port of qiskit_dynamics_tpu.
+
+Same module paths and names as the JAX package (``qiskit_dynamics_tpu``),
+written in PyTorch's idiom: models hold their operators as tensors on an
+explicit ``device`` with an explicit ``dtype``, plain functions operate on
+tensors, and the hot loop of the sweep solver is a CUDA kernel written for
+Hopper (``csrc/``), with an eager-PyTorch twin for tensors on the CPU.
+
+This package never imports ``jax``.
+
+Ported so far (the CR amplitude-sweep main path): signals, the dense
+rotating frame, operator collection, generator/Hamiltonian models, the RWA,
+the lockstep-adaptive dopri5 sweep (kernel and twin), the fused sweep glue,
+scipy host solves, ``Solver`` and ``benchmarks.cr_solver``. ``ROADMAP.md``
+lists what is still to come.
+"""
+import torch as _torch
+
+# The JAX package pins jax_default_matmul_precision="highest": reduced
+# precision matmul inputs wreck propagator chains. TF32 keeps ~3 decimal
+# digits, so it stays off for both matmuls and cuDNN.
+_torch.backends.cuda.matmul.allow_tf32 = False
+_torch.backends.cudnn.allow_tf32 = False
+
+__version__ = "0.1.0"
+
+from .exceptions import DynamicsError
+from .models import RotatingFrame, HamiltonianModel
+from .signals import Signal, SignalSum, SignalList
+from .solvers import solve_ode, solve_lmde, Solver, OdeResult, fused_adaptive_sweep_solve
+
+from . import models
+from . import signals
+from . import solvers
+from . import ops

@@ -1,0 +1,364 @@
+r"""Fused lockstep-adaptive sweep solver (the CR amplitude-sweep main path).
+
+Counterpart of ``fused_adaptive_sweep_solve`` in
+``qiskit_dynamics_tpu/solvers/fused_sweep.py``: given a Hamiltonian model
+and a parameterized signal constructor, it builds the per-member amplitude
+tables for the whole batch in one vectorized pass, sorts members by drive
+magnitude (stiffness bucketing), maps members onto kernel lanes, runs
+:func:`~qiskit_dynamics_tpu_torch.ops.adaptive_sweep.sweep_dopri5_lockstep`
+(the CUDA kernel for a model on a CUDA device, the eager twin for a model on
+the CPU) and rotates the results back to the standard basis.
+
+Not yet ported (``ROADMAP.md``): the fixed-step ``fused_sweep_solve``, the
+gradient of this solve (recorded-grid replay), multi-device ``mesh=`` and
+vectorized Lindblad models.
+"""
+from __future__ import annotations
+
+import warnings
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from ..exceptions import DynamicsError
+from ..models import GeneratorModel
+from ..models.operator_collections import OperatorCollection
+from ..unified import is_tensor, to_numpy, to_tensor
+
+__all__ = ["fused_adaptive_sweep_solve", "sweep_arguments"]
+
+
+def _extract_generator_data(model, t_span, fn_name: str):
+    """Shared validation + frame-basis data extraction for the fused solvers.
+
+    Returns ``(solve_dim, static_fb, ops_fb, omega, t0, tf)``: the static
+    generator and operator stack in the frame basis (tensors on the model's
+    device) and the float64 frame frequency-difference matrix
+    ``omega[i, m] = w_m - w_i``.
+    """
+    if not isinstance(model, GeneratorModel):
+        raise NotImplementedError(
+            f"{fn_name} takes a GeneratorModel/HamiltonianModel in the port; vectorized "
+            "LindbladModel sweeps wait for ROADMAP A7 (fixed-step fused sweeps and Lindblad)."
+        )
+    coll = model._operator_collection
+    if coll.operators is None or not isinstance(coll, OperatorCollection):
+        raise DynamicsError(f"{fn_name} requires dense operators.")
+
+    t0, tf = float(t_span[0]), float(t_span[-1])
+    if tf <= t0:
+        raise DynamicsError(f"{fn_name} requires t_span[1] > t_span[0].")
+
+    solve_dim = model.dim
+    static_fb = coll.static_operator
+    if static_fb is None:
+        static_fb = torch.zeros((solve_dim, solve_dim), dtype=model.dtype, device=model.device)
+    ops_fb = coll.operators
+
+    frame_diag = model.rotating_frame.frame_diag
+    if frame_diag is None:
+        omega = torch.zeros((solve_dim, solve_dim), dtype=torch.float64, device=model.device)
+    else:
+        w = torch.imag(frame_diag.to(torch.complex128))
+        omega = w[None, :] - w[:, None]
+    return solve_dim, static_fb, ops_fb, omega, t0, tf
+
+
+def _tree_map(fn, tree):
+    """Apply ``fn`` to every tensor/array leaf of nested tuples/lists/dicts."""
+    if isinstance(tree, dict):
+        return {key: _tree_map(fn, val) for key, val in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, val) for val in tree)
+    return fn(tree)
+
+
+def _leaves(tree):
+    """The leaves of nested tuples/lists/dicts, in order."""
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        for val in tree:
+            yield from _leaves(val)
+    else:
+        yield tree
+
+
+def fused_adaptive_sweep_solve(
+    model,
+    signals_fn: Callable,
+    params,
+    t_span,
+    y0,
+    atol: float = 1e-6,
+    rtol: float = 1e-6,
+    max_steps: int = 4096,
+    h0: float = 1e-2,
+    tile_b: int = 512,
+    rwa_signal_map: Optional[Callable] = None,
+    envelope_resolution: Optional[int] = None,
+    bucket_lanes: bool = True,
+    t_eval=None,
+    differentiable: bool = True,
+    mesh=None,
+):
+    r"""Lockstep-adaptive dopri5 sweep solve through the fused kernel.
+
+    Args:
+        model: a dense ``HamiltonianModel``/``GeneratorModel``. Its device
+            decides the engine: the CUDA kernel for a CUDA model, the eager
+            twin for a CPU model.
+        signals_fn: one member's parameters -> the model's signal list
+            (before ``rwa_signal_map``). It is called under
+            ``torch.func.vmap`` over axis 0 of ``params``, so envelopes must
+            be tensor arithmetic (no ``.item()``, numpy conversion or Python
+            branching on tensor values).
+        params: a tensor (or nested tuple/list/dict of tensors) with the
+            sweep on axis 0.
+        t_span: ``(t0, tf)``.
+        y0: shared initial state, (dim,) or (dim, m) (e.g. the identity).
+        atol/rtol/max_steps/h0/tile_b: kernel controls (see
+            :func:`~qiskit_dynamics_tpu_torch.ops.adaptive_sweep.sweep_dopri5_lockstep`).
+        rwa_signal_map: maps signals_fn's output to the model's signals.
+        envelope_resolution: ``None`` for constant envelopes
+            (``E_jb = envelope * e^{i phase}``), or ``S`` for a
+            piecewise-constant table of ``S`` midpoint samples over
+            ``[t0, tf]``.
+        bucket_lanes: sort members by total drive magnitude before tiling
+            (each tile shares one step control); results are un-permuted.
+        t_eval: strictly increasing times in ``t_span``; switches the return
+            to ``(B, len(t_eval), ...)`` trajectories.
+        differentiable: the JAX package's default gradient path. Gradients
+            are not ported yet: with ``differentiable=True`` and any input
+            tensor requiring grad this raises ``NotImplementedError`` rather
+            than returning a tensor that silently has no gradient.
+        mesh: multi-device sharding; not ported yet (raises).
+
+    Returns:
+        (B, dim) complex final states at ``t_span[1]`` (standard basis), or
+        (B, dim, m) for a 2d ``y0``; with ``t_eval``, ``(B, n_eval, dim[, m])``.
+    """
+    from ..ops.adaptive_sweep import sweep_dopri5_lockstep
+
+    if mesh is not None:
+        raise NotImplementedError(
+            "fused_adaptive_sweep_solve(mesh=...) waits for ROADMAP A13 (multi-device, "
+            "torch.distributed)."
+        )
+    if differentiable and any(is_tensor(x) and x.requires_grad for x in _leaves((params, y0))):
+        raise NotImplementedError(
+            "the gradient of fused_adaptive_sweep_solve (recorded-grid replay) waits for "
+            "ROADMAP A5; detach the inputs or pass differentiable=False."
+        )
+    if min(atol, rtol) < 3e-8:
+        warnings.warn(
+            "fused_adaptive_sweep_solve runs its state in float32: atol/rtol below ~3e-8 "
+            "only spend steps on roundoff-dominated error estimates.",
+            stacklevel=2,
+        )
+    with torch.no_grad():
+        args, kwargs, collect = sweep_arguments(
+            model, signals_fn, params, t_span, y0, atol=atol, rtol=rtol,
+            max_steps=max_steps, h0=h0, tile_b=tile_b, rwa_signal_map=rwa_signal_map,
+            envelope_resolution=envelope_resolution, bucket_lanes=bucket_lanes,
+            t_eval=t_eval,
+        )
+        return collect(sweep_dopri5_lockstep(*args, **kwargs))
+
+
+def sweep_arguments(
+    model, signals_fn, params, t_span, y0, atol, rtol, max_steps, h0, tile_b,
+    rwa_signal_map, envelope_resolution, bucket_lanes, t_eval,
+):
+    """The glue of :func:`fused_adaptive_sweep_solve` around its kernel call.
+
+    Returns ``(args, kwargs, collect)``: the arguments of
+    :func:`~qiskit_dynamics_tpu_torch.ops.adaptive_sweep.sweep_dopri5_lockstep`
+    for the whole batch (amplitude tables, bucketed and mapped onto lanes)
+    and the function that maps the kernel's output back to
+    ``(B, dim[, m])`` / ``(B, n_eval, dim[, m])`` in member order.
+    """
+    solve_dim, static_fb, ops_fb, omega, t0, tf = _extract_generator_data(
+        model, t_span, "fused_adaptive_sweep_solve"
+    )
+    k = ops_fb.shape[0]
+
+    def flat_signals(p):
+        sigs = signals_fn(p)
+        if rwa_signal_map is not None:
+            sigs = rwa_signal_map(sigs)
+        return list(sigs)
+
+    # the (shared) carrier of every signal, from member-0 and member-(-1)
+    # probes; a mapped signal may be a SignalSum whose terms share one carrier
+    def probe_carriers(member_params):
+        sigs = flat_signals(member_params)
+        if len(sigs) != k:
+            raise DynamicsError(
+                f"signals_fn (after any rwa_signal_map) must produce {k} signals to "
+                f"match the model's operators; got {len(sigs)}."
+            )
+        out = []
+        for s in sigs:
+            carriers = np.atleast_1d(to_numpy(s.carrier_freq).astype(float))
+            if not np.allclose(carriers, carriers[0]):
+                raise DynamicsError(
+                    "fused_adaptive_sweep_solve requires each (summed) signal to have "
+                    "a single carrier frequency."
+                )
+            out.append(2 * np.pi * carriers[0])
+        return np.asarray(out), sigs
+
+    freqs, probe_sigs = probe_carriers(_tree_map(lambda x: x[0], params))
+    freqs_last, _ = probe_carriers(_tree_map(lambda x: x[-1], params))
+    if not np.allclose(freqs, freqs_last):
+        raise DynamicsError(
+            "fused_adaptive_sweep_solve does not support sweeping the carrier "
+            "frequency — carriers must be the same for every sweep member."
+        )
+    amps = _amplitude_tables(flat_signals, params, probe_sigs, freqs, t0, tf, envelope_resolution)
+    env_dt = 0.0 if envelope_resolution is None else (tf - t0) / int(envelope_resolution)
+    amps = amps.to(model.device)
+
+    # stiffness bucketing: each tile shares one step control, so members of
+    # similar drive magnitude go to the same tile (a pure permutation)
+    inv_order = None
+    if bucket_lanes:
+        key = torch.sum(torch.abs(amps), dim=tuple(range(amps.ndim - 1)))  # (B,)
+        order = torch.argsort(key, stable=True)
+        inv_order = torch.argsort(order)
+        amps = amps[..., order]
+
+    y0_fb = model.rotating_frame.state_into_frame_basis(y0)
+    eval_ts, include_t0 = _eval_times(t_eval, t0, tf)
+    amps, y0_cols, B, m = _expand_lanes(amps, y0_fb, solve_dim, tile_b)
+    args = (static_fb, ops_fb, omega, freqs, amps, y0_cols)
+    kwargs = dict(tf=tf, t0=t0, atol=atol, rtol=rtol, max_steps=max_steps, h0=h0,
+                  tile_b=tile_b, env_dt=env_dt, eval_ts=eval_ts)
+
+    def collect(out_kernel):
+        if t_eval is not None:
+            yf, traj = out_kernel if eval_ts is not None else (out_kernel, None)
+            pieces = []
+            if include_t0:
+                pieces.append(y0_cols.to(yf.dtype)[None])
+            if traj is not None:
+                pieces.append(traj)
+            out = _collect_trajectory(model, torch.cat(pieces, dim=0), B, m)
+        else:
+            out = _collect_lanes(model, out_kernel, B, m)
+        return out if inv_order is None else out[inv_order]
+
+    return args, kwargs, collect
+
+
+def _amplitude_tables(flat_signals, params, probe_sigs, freqs, t0, tf, envelope_resolution):
+    """(k, B) constant amplitudes or (k, S, B) envelope tables for the whole
+    batch, in one ``torch.func.vmap`` pass over ``signals_fn``."""
+    device = next((x.device for x in _leaves(params) if is_tensor(x)), torch.device("cpu"))
+    if envelope_resolution is None:
+        # reject non-constant envelopes (silently wrong otherwise): probe the
+        # member-0 envelopes at a few interior times
+        probe_ts = torch.as_tensor(t0 + np.array([0.0, 0.37, 0.71]) * (tf - t0))
+        for s in probe_sigs:
+            vals = np.asarray(
+                [np.sum(np.atleast_1d(to_numpy(s.envelope(t)).astype(complex)))
+                 for t in probe_ts]
+            )
+            if not np.allclose(vals, vals[0], rtol=1e-12, atol=1e-12):
+                raise DynamicsError(
+                    "fused_adaptive_sweep_solve with envelope_resolution=None requires "
+                    "constant-envelope signals; pass envelope_resolution=S for "
+                    "time-dependent pulse shapes."
+                )
+        t_zero = torch.zeros((), dtype=torch.float64, device=device)
+
+        def amplitudes(p):
+            rows = []
+            for s in flat_signals(p):
+                env = to_tensor(s.envelope(t_zero)).to(torch.complex128).reshape(-1)
+                ph = s.phase.to(device).reshape(-1)
+                rows.append(torch.sum(env * torch.exp(1j * ph)))
+            return torch.stack(rows)  # (k,)
+    else:
+        n_env = int(envelope_resolution)
+        env_dt = (tf - t0) / n_env
+        env_times_np = t0 + (np.arange(n_env) + 0.5) * env_dt
+        env_times = torch.as_tensor(env_times_np, device=device)
+        carrier_phase = torch.as_tensor(
+            np.exp(-1j * freqs[:, None] * env_times_np[None, :]), device=device
+        )  # (k, S)
+
+        def amplitudes(p):
+            rows = [
+                s.complex_value(env_times).to(torch.complex128) * carrier_phase[j]
+                for j, s in enumerate(flat_signals(p))
+            ]
+            return torch.stack(rows)  # (k, S)
+
+    return torch.movedim(torch.func.vmap(amplitudes)(params), 0, -1)
+
+
+def _eval_times(t_eval, t0: float, tf: float):
+    """``t_eval`` -> (elapsed kernel eval times or None, whether t0 is included)."""
+    if t_eval is None:
+        return None, False
+    te = np.atleast_1d(to_numpy(t_eval).astype(float))
+    if te.ndim != 1 or te.size == 0:
+        raise DynamicsError("t_eval must be a non-empty 1d sequence of times.")
+    if te.size > 1 and np.any(np.diff(te) <= 0):
+        raise DynamicsError("t_eval must be strictly increasing.")
+    if te[0] < t0 - 1e-9 or te[-1] > tf + 1e-9 * max(1.0, abs(tf)):
+        raise DynamicsError(f"t_eval must lie within t_span ({t0}, {tf}).")
+    # snap tolerance covers the containment slack above: a te[0] in
+    # [t0 - 1e-9, t0) would otherwise produce a negative elapsed time
+    include_t0 = te[0] - t0 <= 1e-9 * max(1.0, abs(t0))
+    rel = (te[1:] if include_t0 else te) - t0
+    return (tuple(float(x) for x in rel) if rel.size else None), include_t0
+
+
+def _expand_lanes(lane_data: torch.Tensor, y0_fb: torch.Tensor, dim: int, tile_b: int):
+    """Map sweep members x y0 columns onto kernel lanes.
+
+    1d ``y0_fb`` (dim,): one lane per sweep member. 2d ``y0_fb`` (dim, m) —
+    e.g. the identity for unitary sweeps: each member occupies ``m``
+    consecutive lanes (per-lane data repeated, y0 columns tiled). Pads the
+    lane axis to a multiple of ``tile_b`` with copies of the first lane, so
+    the tile-wide error max never reads garbage. Returns
+    (lane_data, y0_cols, B, m).
+    """
+    m = 1 if y0_fb.ndim == 1 else y0_fb.shape[1]
+    B = lane_data.shape[-1]
+    if m > 1:
+        lane_data = torch.repeat_interleave(lane_data, m, dim=-1)
+    total = B * m
+    pad = (-total) % tile_b
+    if pad:
+        filler = lane_data[..., :1].expand(lane_data.shape[:-1] + (pad,))
+        lane_data = torch.cat([lane_data, filler], dim=-1)
+
+    if m == 1:
+        y0_cols = y0_fb[:, None].expand(dim, total + pad)
+    else:
+        cols = y0_fb.repeat(1, B)  # member-major, column-minor
+        y0_cols = torch.cat([cols, cols[:, :1].expand(dim, pad)], dim=-1)
+    return lane_data, y0_cols, B, m
+
+
+def _collect_lanes(model, yf: torch.Tensor, B: int, m: int) -> torch.Tensor:
+    """Inverse of :func:`_expand_lanes`: (dim, lanes) -> (B, dim) or (B, dim, m)."""
+    yf = model.rotating_frame.state_out_of_frame_basis(yf[:, : B * m])
+    if m == 1:
+        return yf.T
+    return torch.movedim(yf.reshape(yf.shape[0], B, m), 1, 0)
+
+
+def _collect_trajectory(model, traj: torch.Tensor, B: int, m: int) -> torch.Tensor:
+    """(n_eval, dim, lanes) frame-basis trajectory -> (B, n_eval, dim) or
+    (B, n_eval, dim, m)."""
+    traj = model.rotating_frame.state_out_of_frame_basis(traj[:, :, : B * m])
+    if m == 1:
+        return traj.permute(2, 0, 1)
+    n_eval, dim = traj.shape[0], traj.shape[1]
+    return torch.movedim(traj.reshape(n_eval, dim, B, m), 2, 0)

@@ -1,0 +1,128 @@
+"""High-level ``Solver`` class (Hamiltonian models).
+
+Counterpart of ``qiskit_dynamics_tpu/solvers/solver_classes.py`` for the
+Hamiltonian case without pulse channels: it builds a ``HamiltonianModel`` on
+an explicit ``device``/``dtype``, optionally applies the RWA with a cached
+signal map, and exposes
+
+- ``solve`` for one simulation with a scipy method (host float64), and
+- ``solve_sweep(method="fused_dopri5")`` for a parameter sweep through the
+  lockstep-adaptive sweep kernel.
+
+Lindblad models, pulse channels and schedules, quantum_info state types and
+list-broadcast ``solve`` calls are still to be ported (``ROADMAP.md``).
+"""
+from __future__ import annotations
+
+from typing import List, Optional
+
+import torch
+
+from ..exceptions import DynamicsError
+from ..models import HamiltonianModel, rotating_wave_approximation
+from ..signals import Signal, SignalList
+from ..unified import to_tensor
+from .results import OdeResult
+from .solver_functions import solve_lmde
+
+__all__ = ["Solver"]
+
+
+class Solver:
+    """Solver for Hamiltonian dynamics."""
+
+    def __init__(
+        self,
+        static_hamiltonian=None,
+        hamiltonian_operators=None,
+        rotating_frame=None,
+        in_frame_basis: bool = False,
+        rwa_cutoff_freq: Optional[float] = None,
+        rwa_carrier_freqs=None,
+        validate: bool = True,
+        device=None,
+        dtype: torch.dtype = torch.complex128,
+    ):
+        model = HamiltonianModel(
+            static_operator=static_hamiltonian,
+            operators=hamiltonian_operators,
+            rotating_frame=rotating_frame,
+            in_frame_basis=in_frame_basis,
+            validate=validate,
+            device=device,
+            dtype=dtype,
+        )
+        self._rwa_signal_map = None
+        self._model = model
+
+        if rwa_cutoff_freq:
+            self._model.signals = _rwa_seed_signals(rwa_carrier_freqs, hamiltonian_operators)
+            self._model, self._rwa_signal_map = rotating_wave_approximation(
+                self._model, rwa_cutoff_freq, return_signal_map=True
+            )
+            self._set_new_signals(None)
+
+    @property
+    def model(self) -> HamiltonianModel:
+        """The underlying model."""
+        return self._model
+
+    def solve(self, t_span, y0, signals=None, **kwargs) -> OdeResult:
+        r"""Solve one simulation with a scipy method (``method="DOP853"`` by
+        default), signals given before the RWA. ``y0`` is an array or tensor
+        of shape (dim,) or (dim, m); the result's ``y`` is a host numpy array
+        with time on axis 0, in the standard basis."""
+        if kwargs.get("method", "DOP853") in ("fused_dopri5", "fused"):
+            raise DynamicsError(
+                "method='fused_dopri5' solves parameter sweeps: use Solver.solve_sweep."
+            )
+        y0 = to_tensor(y0)
+        if y0.shape[0] != self.model.dim or y0.ndim > 2:
+            raise DynamicsError("Shape mismatch for initial state y0 and HamiltonianModel.")
+        self._set_new_signals(signals)
+        try:
+            results = solve_lmde(generator=self.model, t_span=t_span, y0=y0, **kwargs)
+        finally:
+            self._set_new_signals(None)
+        return results
+
+    def solve_sweep(self, signals_fn, params, t_span, y0, method: str = "fused_dopri5",
+                    **kwargs):
+        r"""Solve a parameter sweep with the fused kernel, one call per batch.
+
+        ``signals_fn`` maps one member's parameters to the model's signal
+        list as given to :meth:`solve` (before the RWA: the solver's RWA
+        signal map is wired automatically); ``params`` carries the sweep on
+        axis 0. ``method="fused_dopri5"`` (alias ``"fused"``) is the
+        lockstep-adaptive kernel; the other JAX methods (``fused_magnus2``,
+        ``chebyshev``) are still to be ported. ``kwargs`` go to
+        :func:`~qiskit_dynamics_tpu_torch.solvers.fused_sweep.fused_adaptive_sweep_solve`.
+
+        Returns:
+            (B, dim) final states (or trajectories with ``t_eval``).
+        """
+        from .fused_sweep import fused_adaptive_sweep_solve
+
+        rwa_signal_map = kwargs.pop("rwa_signal_map", self._rwa_signal_map)
+        if method in ("fused_dopri5", "fused"):
+            return fused_adaptive_sweep_solve(
+                self.model, signals_fn, params, t_span=t_span, y0=y0,
+                rwa_signal_map=rwa_signal_map, **kwargs,
+            )
+        raise DynamicsError(
+            f"solve_sweep method {method!r} is not ported yet; use 'fused_dopri5'."
+        )
+
+    def _set_new_signals(self, signals):
+        """Set (possibly RWA-mapped) signals on the model."""
+        if signals is not None and self._rwa_signal_map:
+            signals = self._rwa_signal_map(signals)
+        self.model.signals = signals
+
+
+def _rwa_seed_signals(carrier_freqs, ham_ops) -> List[Signal]:
+    """Placeholder ``Signal(1.0, f)`` list seeding the RWA term masking:
+    explicit ``rwa_carrier_freqs``, or all zeros by operator count."""
+    if carrier_freqs is None:
+        carrier_freqs = [0.0] * len(ham_ops) if ham_ops is not None else []
+    return SignalList([Signal(1.0, carrier_freq=f) for f in carrier_freqs])
