@@ -11,8 +11,9 @@ raises and exits non-zero:
 1. device: a CUDA device is required; prints the card's name and power limit
    as ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
    reports them.
-2. build: compiles the lockstep-adaptive dopri5 kernel
-   (``qiskit_dynamics_tpu_torch/csrc/adaptive_sweep.cu``) with nvcc.
+2. build: compiles both kernels, the lockstep-adaptive dopri5 sweep
+   (``qiskit_dynamics_tpu_torch/csrc/adaptive_sweep.cu``) and the fixed-step
+   Magnus-2 sweep (``csrc/sweep_magnus2.cu``), one nvcc each, in parallel.
 3. kernel against its eager twin on the card, in every mode (constant
    envelopes with padded lanes, envelope tables, eval times, budget
    exhaustion, stall guard) at n = 4, 9, 16, 27: final states within 1e-5,
@@ -23,7 +24,24 @@ raises and exits non-zero:
    T = 100, atol = rtol = 1e-6, h0 = 0.1; three probe members against the
    port's float64 DOP853 (atol = rtol = 1e-8) within 1e-5 in population;
    the kernel launch counter must rise; sims/s from a steady block of at
-   least 1 s and 3 repeats; the kernel's and the twin's time at that shape.
+   least 1 s and 3 repeats; the kernel's and the twin's time at that shape,
+   and the accepted-step record from which the kernel's bound is computed.
+5. the fixed-step kernel against its plain version on the card, in every
+   mode (matrix, matrix_herm, matvec) at n = 4, 9, 16, 25, with padded lanes
+   and a ragged last block, plus a trajectory (eval_slots) case: states
+   within 1e-5 (norm-1 states; the plain version repeats the kernel's
+   float operations in order, so they are expected to agree bit for bit).
+6. the CR sweep gradient at full width: ``cr_solver(device="cuda")``
+   (n = 16) through ``Solver.solve_sweep(method="fused_magnus2")`` over
+   10,000 amplitudes, T = 100, max_dt = 0.5 (200 steps), loss
+   ``mean(|y[:, 1]|^2)``: forward sims/s and grad-sims/s from steady blocks;
+   the kernel's launch counter must rise; at members 0, 5,000 and 9,999 the
+   forward states within 2e-6 and the gradient within 1e-4 of max |g| of the
+   complex128 eager engine (same polynomial) and its autograd gradient.
+7. the Lindblad density-matrix sweep (BASELINE config 3): a driven qubit
+   with amplitude damping, vectorized (solve_dim 4), 10,240 amplitudes,
+   T = 20, max_dt = 0.02 (1,000 steps) through ``solve_sweep``; three probes
+   within 1e-5 of the port's float64 DOP853 (atol = rtol = 1e-10).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Nothing of JAX is imported.
@@ -33,6 +51,7 @@ import math
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -43,6 +62,20 @@ PROBES = 3
 MAIN_TOL = 1e-6
 MODE_TOL = 1e-3
 DIMS = (4, 9, 16, 27)
+B2_DIMS = (4, 9, 16, 25)
+B2_MODES = ("matrix", "matrix_herm", "matvec")
+B2_TOL = 1e-5
+GRAD_SWEEP = 10_000
+GRAD_MAX_DT = 0.5
+FWD_TOL = 2e-6  # f32 kernel vs complex128 engine, same polynomial (CPU: 1.9e-7)
+GRAD_TOL = 1e-4  # relative to max |g|
+LIND_SWEEP = 10_240
+LIND_T = 20.0
+LIND_MAX_DT = 0.02
+LIND_TOL = 1e-5
+# the card's peaks (H100 SXM data sheet): FP32 outside the tensor cores, HBM
+PEAK_F32 = 67e12
+PEAK_BYTES = 3.35e12
 
 
 class CheckFailed(RuntimeError):
@@ -164,19 +197,20 @@ def phase_modes(torch, asw, expand_lanes):
 # --------------------------------------------------------------------------
 def steady_time(torch, fn, target_s=1.0, min_repeats=3):
     """Per-call seconds from one block of back-to-back calls lasting at least
-    ``target_s`` and ``min_repeats`` calls, synchronized at both ends."""
-    torch.cuda.synchronize()
-    start = time.perf_counter()
+    ``target_s`` and ``min_repeats`` calls, synchronized only at its two ends.
+    A block that ends short is thrown away and timed again, longer."""
     fn()
     torch.cuda.synchronize()
-    first = time.perf_counter() - start
-    reps = max(min_repeats, math.ceil(target_s / max(first, 1e-9)))
-    start = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    torch.cuda.synchronize()
-    block = time.perf_counter() - start
-    return block / reps, block, reps
+    reps = min_repeats
+    while True:
+        start = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        block = time.perf_counter() - start
+        if block >= target_s:
+            return block / reps, block, reps
+        reps = max(reps + 1, math.ceil(1.2 * reps * target_s / block))
 
 
 def cuda_ms(torch, fn, reps):
@@ -189,6 +223,314 @@ def cuda_ms(torch, fn, reps):
     end.record()
     torch.cuda.synchronize()
     return begin.elapsed_time(end) / reps
+
+
+def bound(flops: float, nbytes: float):
+    """(bound_ms, bound_by): the larger of the FP32 time and the memory time."""
+    t_ops, t_bytes = flops / PEAK_F32, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def b1_work(n: int, k: int, tile_b: int, accepted):
+    """Float32 operations and bytes of the adaptive kernel for this run's
+    accepted steps (6 new stages per step, FSAL): per stage and member the
+    generator entries (4k) and the complex multiply-add (8) for n^2 entries,
+    the stage combination and the error norm (~20 n)."""
+    stages = 6 * float(np.sum(accepted))
+    flops = stages * tile_b * (n * n * (4 * k + 8) + 20 * n)
+    return flops
+
+
+def b2_flops_per_member_step(n: int, k: int, order: int, mode: str) -> float:
+    """Float32 operations of one member-step of the fixed-step kernel."""
+    build = 2 * n * n * (4 * k + 6)
+    if mode == "matvec":
+        return build + order * (32 * n * n + 16 * n)
+    horner = order * (8 * n * n + 4 * n)
+    if mode == "matrix_herm":
+        return build + 8 * n**3 + 10 * n * n + horner
+    return build + 16 * n**3 + 12 * n * n + horner
+
+
+def b2_bound(inputs):
+    n, k, T, B = inputs.n, inputs.k, inputs.steps, inputs.batch
+    flops = b2_flops_per_member_step(n, k, inputs.order, inputs.mode) * T * B
+    nbytes = 4 * (T * 2 * k * B + 4 * n * B + 2 * (k + 1) * n * n) + 8 * n * n
+    return bound(flops, nbytes)
+
+
+class Capture:
+    """Records the inputs of the fixed-step kernel's launches on one path."""
+
+    def __init__(self, ssw):
+        self.ssw, self.inputs, self._launch = ssw, [], ssw._launch_kernel
+
+    def __enter__(self):
+        def launch(inputs):
+            self.inputs.append(inputs)
+            return self._launch(inputs)
+
+        self.ssw._launch_kernel = launch
+        return self
+
+    def __exit__(self, *exc):
+        self.ssw._launch_kernel = self._launch
+
+
+# --------------------------------------------------------------------------
+# phase 5: the fixed-step kernel against its plain version
+# --------------------------------------------------------------------------
+def phase_b2_modes(torch, ssw, expand_lanes):
+    """Kernel against plain version in every mode at every n, padded lanes,
+    a ragged last block and a trajectory case. Returns (max diff, all bitwise)."""
+    cuda = torch.device("cuda")
+    T, dt, t0 = 20, 0.05, 0.3
+    members, tile_b = 990, 40  # 990 members pad to 1,000 lanes: a ragged last block
+    worst, bitwise = 0.0, True
+    for n in B2_DIMS:
+        static, ops, omega, _ = kernel_problem(n, seed=200 + n)
+        gen = np.random.default_rng(300 + n)
+        coef = torch.as_tensor(gen.uniform(-1.0, 1.0, (T, 2, 2, members)), device=cuda)
+        y0 = gen.normal(size=n) + 1j * gen.normal(size=n)
+        y0 = torch.as_tensor(y0 / np.linalg.norm(y0), device=cuda)
+        coef, y0_cols, _, _ = expand_lanes(coef.reshape(T * 4, members), y0, n, tile_b)
+        coef = coef.reshape(T, 2, 2, -1).float()
+        slots = tuple(int(x) for x in np.where(np.arange(T) % 7 == 3, np.arange(T) // 7, -1))
+        cases = [(mode, None) for mode in B2_MODES] + [("auto", slots)]
+        for mode, eval_slots in cases:
+            args = (static, ops, omega, coef, y0_cols)
+            kwargs = dict(dt=dt, t0=t0, tile_b=tile_b, hermitian=True, mode=mode,
+                          eval_slots=eval_slots)
+            out = ssw.sweep_expm_magnus2(*args, **kwargs)
+            plain = ssw.sweep_expm_magnus2_plain(ssw.prepare_inputs(*args, **kwargs))
+            torch.cuda.synchronize()
+            pairs = [(out, plain[0])] if eval_slots is None else [(out[0], plain[0]),
+                                                                  (out[1], plain[1])]
+            for got, want in pairs:
+                diff = float((got - want).abs().max())
+                check(diff <= B2_TOL, f"B2 n={n} {mode}: kernel vs plain {diff:.2e} > {B2_TOL}")
+                bitwise = bitwise and bool(torch.equal(got, want))
+                worst = max(worst, diff)
+            log(f"  B2 n={n:2d} {mode:11s} {'traj' if eval_slots else '    '} diff {diff:.2e}")
+    return worst, bitwise
+
+
+# --------------------------------------------------------------------------
+# phase 6: the CR sweep gradient through the fixed-step kernel
+# --------------------------------------------------------------------------
+def cr_reference(torch, solver, signals_fn, amps, y0, n_steps, dt):
+    """Final states (B, dim) and the loss gradient of ``amps`` (complex128
+    eager engine, autograd) for a few members: the same Magnus-2 polynomial
+    as the kernel, in float64. The loss is the main path's
+    ``mean(|y[:, 1]|^2)`` over the full sweep, so each member contributes
+    ``|y_b[1]|^2 / GRAD_SWEEP``."""
+    from qiskit_dynamics_tpu_torch.ops.sweep_solver import _GAUSS_C1, _GAUSS_C2
+    from qiskit_dynamics_tpu_torch.ops.xla_sweep import sweep_expm_magnus2_xla
+    from qiskit_dynamics_tpu_torch.solvers.fused_sweep import _extract_generator_data
+
+    _, dim, static, ops, omega, _, _ = _extract_generator_data(solver.model, (0.0, 1.0), "ref")
+    gauss_t = torch.as_tensor(
+        dt * (np.arange(n_steps)[:, None] + np.array([_GAUSS_C1, _GAUSS_C2])[None, :]),
+        device=amps.device,
+    )
+    amps = amps.detach().clone().requires_grad_(True)
+    coef = torch.movedim(
+        torch.func.vmap(lambda a: solver._rwa_signal_map(signals_fn(a))(gauss_t))(amps), 0, -1
+    )
+    y0_fb = solver.model.rotating_frame.state_into_frame_basis(y0)
+    yf = sweep_expm_magnus2_xla(
+        static, ops, omega, coef, y0_fb[:, None].expand(dim, amps.shape[0]), dt=dt,
+        hermitian=True,
+    )
+    yf = solver.model.rotating_frame.state_out_of_frame_basis(yf).T
+    loss = torch.sum(yf[:, 1].abs() ** 2) / GRAD_SWEEP
+    (grad,) = torch.autograd.grad(loss, amps)
+    return yf.detach(), grad
+
+
+def phase_grad(torch, ssw, Signal, cr_solver):
+    cuda = torch.device("cuda")
+    solver, w1 = cr_solver(device=cuda)
+    dim = solver.model.dim
+    y0 = np.zeros(dim, dtype=complex)
+    y0[0] = 1.0
+    amps = torch.linspace(0.25, 1.0, GRAD_SWEEP, dtype=torch.float64, device=cuda)
+
+    def signals_fn(amp):
+        return [Signal(lambda t: amp * AMP_SCALE, carrier_freq=w1)]
+
+    kw = dict(t_span=(0.0, T_MAIN), y0=y0, method="fused_magnus2", max_dt=GRAD_MAX_DT)
+
+    def forward():
+        with torch.no_grad():
+            return solver.solve_sweep(signals_fn, amps, **kw)
+
+    def value_and_grad():
+        a = amps.clone().requires_grad_(True)
+        yf = solver.solve_sweep(signals_fn, a, **kw)
+        loss = torch.mean(yf[:, 1].abs() ** 2)
+        (g,) = torch.autograd.grad(loss, a)
+        return yf.detach(), g
+
+    value_and_grad()  # warm-up
+    torch.cuda.synchronize()
+    ssw.sweep_expm_magnus2.launches = 0
+    with Capture(ssw) as cap:
+        yf, g = value_and_grad()
+        torch.cuda.synchronize()
+    launches = ssw.sweep_expm_magnus2.launches
+    check(launches > 0, "the gradient path did not launch the sweep_magnus2 kernel")
+    check(yf.shape == (GRAD_SWEEP, dim) and g.shape == (GRAD_SWEEP,), "gradient path shapes")
+    check(bool(torch.isfinite(yf).all()) and bool(torch.isfinite(g).all()),
+          "non-finite values on the gradient path")
+    inputs = cap.inputs[-1]
+
+    probes = torch.as_tensor([0, GRAD_SWEEP // 2, GRAD_SWEEP - 1], device=cuda)
+    n_steps = inputs.steps
+    ref_y, ref_g = cr_reference(torch, solver, signals_fn, amps[probes], torch.as_tensor(
+        y0, device=cuda), n_steps, T_MAIN / n_steps)
+    fwd_err = float((yf[probes] - ref_y).abs().max())
+    grad_err = float((g[probes] - ref_g).abs().max() / ref_g.abs().max())
+    check(fwd_err <= FWD_TOL, f"gradient path forward vs complex128 engine {fwd_err:.2e} > {FWD_TOL}")
+    check(grad_err <= GRAD_TOL, f"gradient vs complex128 autograd {grad_err:.2e} > {GRAD_TOL} of max |g|")
+
+    ref_solver, _ = cr_solver(device="cpu")  # float64 on the host
+    pop_err = 0.0
+    for a, got in zip(amps[probes].tolist(), yf[probes].cpu().numpy()):
+        res = ref_solver.solve(
+            t_span=[0.0, T_MAIN], y0=y0, method="DOP853", atol=1e-8, rtol=1e-8,
+            signals=[Signal(lambda t, a=a: a * AMP_SCALE, carrier_freq=w1)],
+        )
+        pop_err = max(pop_err, float(np.max(np.abs(np.abs(res.y[-1]) ** 2 - np.abs(got) ** 2))))
+
+    fwd_call, fwd_block, fwd_reps = steady_time(torch, forward)
+    grad_call, grad_block, grad_reps = steady_time(torch, value_and_grad)
+    kernel_ms = cuda_ms(torch, lambda: ssw._launch_kernel(inputs), reps=5)
+    kernel_out = ssw._launch_kernel(inputs)[0]
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    plain_out = ssw.sweep_expm_magnus2_plain(inputs)[0]
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - start) * 1e3
+    diff = float((kernel_out - plain_out).abs().max())
+    check(diff <= B2_TOL, f"gradient-path kernel vs plain {diff:.2e} > {B2_TOL}")
+    eager_ms = eager_engine_ms(torch, inputs)
+    bound_ms, bound_by = b2_bound(inputs)
+    print(
+        f"phase 6 CR gradient: n={dim}, {GRAD_SWEEP} members, {n_steps} steps (T={T_MAIN}, "
+        f"max_dt={GRAD_MAX_DT}), mode {inputs.mode}, {inputs.batch} lanes: forward "
+        f"{GRAD_SWEEP / fwd_call:.1f} sims/s ({fwd_reps} calls in {fwd_block:.2f} s), "
+        f"{GRAD_SWEEP / grad_call:.1f} grad-sims/s ({grad_reps} calls in {grad_block:.2f} s, "
+        f"{grad_call * 1e3:.1f} ms/call); kernel {kernel_ms:.3f} ms (bound {bound_ms:.3f} ms, "
+        f"{bound_by}), plain {plain_ms:.1f} ms, eager engine {eager_ms:.2f} ms; kernel vs plain "
+        f"{diff:.2e}{' (bitwise)' if diff == 0.0 else ''}; probes vs complex128 engine: "
+        f"states {fwd_err:.2e} (<= {FWD_TOL}), gradient {grad_err:.2e} of max |g| "
+        f"(<= {GRAD_TOL}); population error vs DOP853(1e-8), not gated: {pop_err:.2e}; "
+        f"launches {launches}",
+        flush=True,
+    )
+    return dict(launches=launches, max_abs_err=diff, ms=kernel_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, eager_ms=eager_ms,
+                grad_sims_per_s=GRAD_SWEEP / grad_call, sims_per_s=GRAD_SWEEP / fwd_call)
+
+
+def eager_engine_ms(torch, inputs):
+    """Milliseconds of the eager engine (the port of the JAX package's
+    sweep_engine="xla") on the kernel's inputs, CUDA events over 3 calls."""
+    from qiskit_dynamics_tpu_torch.ops.xla_sweep import sweep_expm_magnus2_xla
+
+    static = torch.complex(inputs.statr, inputs.stati)
+    ops = torch.complex(inputs.opsr, inputs.opsi)
+    y0 = torch.complex(inputs.y0r, inputs.y0i)
+
+    def run():
+        with torch.no_grad():
+            sweep_expm_magnus2_xla(static, ops, inputs.omega, inputs.coef, y0, dt=inputs.dt,
+                                   t0=inputs.t0, order=inputs.order,
+                                   hermitian=inputs.mode == "matrix_herm")
+
+    return cuda_ms(torch, run, reps=3)
+
+
+# --------------------------------------------------------------------------
+# phase 7: the Lindblad density-matrix sweep (BASELINE config 3)
+# --------------------------------------------------------------------------
+def lindblad_solver(Solver, device):
+    X = np.array([[0, 1], [1, 0]], dtype=complex)
+    Z = np.array([[1, 0], [0, -1]], dtype=complex)
+    sm = np.array([[0, 1], [0, 0]], dtype=complex)
+    H0 = 2 * np.pi * 5.0 * Z / 2
+    return Solver(
+        static_hamiltonian=H0, hamiltonian_operators=[2 * np.pi * 0.1 * X / 2],
+        static_dissipators=[np.sqrt(0.02) * sm], rotating_frame=np.diag(H0), vectorized=True,
+        device=device,
+    )
+
+
+def phase_lindblad(torch, ssw, Signal, Solver):
+    cuda = torch.device("cuda")
+    solver = lindblad_solver(Solver, cuda)
+    rho0 = np.array([[1.0, 0.0], [0.0, 0.0]], dtype=complex)
+    amps = torch.linspace(0.2, 1.0, LIND_SWEEP, dtype=torch.float64, device=cuda)
+
+    def signals_fn(amp):
+        return ([Signal(lambda t: amp, carrier_freq=5.0)], None)
+
+    def sweep():
+        return solver.solve_sweep(signals_fn, amps, t_span=(0.0, LIND_T), y0=rho0,
+                                  method="fused_magnus2", max_dt=LIND_MAX_DT)
+
+    sweep()
+    torch.cuda.synchronize()
+    ssw.sweep_expm_magnus2.launches = 0
+    with Capture(ssw) as cap:
+        out = sweep()
+        torch.cuda.synchronize()
+    launches = ssw.sweep_expm_magnus2.launches
+    check(launches > 0, "the Lindblad path did not launch the sweep_magnus2 kernel")
+    check(out.shape == (LIND_SWEEP, 2, 2), f"Lindblad output shape {tuple(out.shape)}")
+    check(bool(torch.isfinite(out).all()), "non-finite Lindblad density matrices")
+    inputs = cap.inputs[-1]
+    trace_dev = float((out[:, 0, 0] + out[:, 1, 1] - 1.0).abs().max())
+
+    host = lindblad_solver(Solver, "cpu")
+    probes = [0, LIND_SWEEP // 2, LIND_SWEEP - 1]
+    start = time.perf_counter()
+    err = 0.0
+    for i in probes:
+        a = float(amps[i])
+        res = host.solve(t_span=[0.0, LIND_T], y0=rho0, method="DOP853", atol=1e-10,
+                         rtol=1e-10, signals=[Signal(a, carrier_freq=5.0)])
+        err = max(err, float(np.max(np.abs(res.y[-1] - out[i].cpu().numpy()))))
+    dop853_s = (time.perf_counter() - start) / len(probes)
+    check(err <= LIND_TOL, f"Lindblad max error {err:.2e} > {LIND_TOL} against DOP853(1e-10)")
+
+    per_call, block_s, reps = steady_time(torch, sweep)
+    kernel_ms = cuda_ms(torch, lambda: ssw._launch_kernel(inputs), reps=5)
+    kernel_out = ssw._launch_kernel(inputs)[0]
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    plain_out = ssw.sweep_expm_magnus2_plain(inputs)[0]
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - start) * 1e3
+    diff = float((kernel_out - plain_out).abs().max())
+    check(diff <= B2_TOL, f"Lindblad kernel vs plain {diff:.2e} > {B2_TOL}")
+    eager_ms = eager_engine_ms(torch, inputs)
+    bound_ms, bound_by = b2_bound(inputs)
+    print(
+        f"phase 7 Lindblad config 3: solve_dim 4, {LIND_SWEEP} members, {inputs.steps} steps "
+        f"(T={LIND_T}, max_dt={LIND_MAX_DT}), mode {inputs.mode}: {LIND_SWEEP / per_call:.1f} "
+        f"sims/s ({reps} calls in {block_s:.2f} s, {per_call * 1e3:.2f} ms/call); kernel "
+        f"{kernel_ms:.3f} ms (bound {bound_ms:.3f} ms, {bound_by}), plain {plain_ms:.1f} ms, "
+        f"eager engine {eager_ms:.2f} ms; kernel vs plain {diff:.2e}"
+        f"{' (bitwise)' if diff == 0.0 else ''}; max error {err:.2e} (<= {LIND_TOL}, "
+        f"{len(probes)} probes vs DOP853 1e-10 at {dop853_s:.2f} s/sim); max |trace - 1| "
+        f"{trace_dev:.2e}; launches {launches}",
+        flush=True,
+    )
+    return dict(launches=launches, max_abs_err=diff, ms=kernel_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, eager_ms=eager_ms,
+                sims_per_s=LIND_SWEEP / per_call)
 
 
 def main() -> int:
@@ -205,22 +547,29 @@ def main() -> int:
     print(f"phase 1 device: {smi} (torch {torch.__version__}, CUDA {torch.version.cuda})",
           flush=True)
 
-    from qiskit_dynamics_tpu_torch import Signal
+    from qiskit_dynamics_tpu_torch import Signal, Solver
     from qiskit_dynamics_tpu_torch.benchmarks import cr_solver
     from qiskit_dynamics_tpu_torch.kernels import _build
     from qiskit_dynamics_tpu_torch.ops import adaptive_sweep as asw
+    from qiskit_dynamics_tpu_torch.ops import sweep_solver as ssw
     from qiskit_dynamics_tpu_torch.solvers.fused_sweep import _expand_lanes, sweep_arguments
 
-    # phase 2: build
+    # phase 2: build both kernels, one nvcc each, in parallel
     start = time.perf_counter()
-    _build.load("adaptive_sweep")
+    names = ("adaptive_sweep", "sweep_magnus2")
+    with ThreadPoolExecutor(len(names)) as pool:
+        for lib in pool.map(_build.load, names):
+            check(lib is not None, "a kernel library did not load")
     build_s = time.perf_counter() - start
-    report = sorted(_build.BUILD_DIR.glob("libadaptive_sweep_*.so.ptxas.txt"))
-    ptxas = " ".join(
-        line.strip() for line in (report[-1].read_text().splitlines() if report else [])
-        if "registers" in line or "spill" in line
-    )
-    print(f"phase 2 build: adaptive_sweep.cu built in {build_s:.2f} s; {ptxas}", flush=True)
+    reports = []
+    for name in names:
+        report = sorted(_build.BUILD_DIR.glob(f"lib{name}_*.so.ptxas.txt"))
+        reports.append(f"{name}: " + " ".join(
+            line.strip() for line in (report[-1].read_text().splitlines() if report else [])
+            if "registers" in line or "spill" in line
+        ))
+    print(f"phase 2 build: {', '.join(names)} built in {build_s:.2f} s; " + "; ".join(reports),
+          flush=True)
 
     # phase 3: kernel against twin, every mode, every n
     start = time.perf_counter()
@@ -258,7 +607,7 @@ def main() -> int:
     check(bool(np.isfinite(pops).all()), "non-finite populations in the main path")
     norm_dev = float(np.max(np.abs(pops.sum(axis=1) - 1.0)))
 
-    ref_solver, _ = cr_solver()  # float64 on the host
+    ref_solver, _ = cr_solver(device="cpu")  # float64 on the host
     probe_idx = np.linspace(0, SWEEP - 1, PROBES).astype(int)
     start = time.perf_counter()
     ref_pops = []
@@ -292,15 +641,33 @@ def main() -> int:
     main_diff = float((kernel_out - twin_out).abs().max())
     check(main_diff <= 1e-5, f"main-path kernel vs twin diff {main_diff:.2e} > 1e-5")
     host_ms = per_call * 1e3 - kernel_ms
+    # the bound counts this run's accepted steps (the kernel's step record)
+    record = asw._launch_kernel(inputs, True)[2].cpu().numpy()
+    accepted = (record > 0).sum(axis=1)
+    b1_bytes = 4 * (2 * inputs.k * inputs.batch + 4 * dim * inputs.batch)
+    b1_bound_ms, b1_bound_by = bound(b1_work(dim, inputs.k, inputs.tile_b, accepted), b1_bytes)
     print(
         f"phase 4 main path: cr_solver n={dim}, {SWEEP} members, T={T_MAIN}, tol {MAIN_TOL}: "
         f"{sims_per_s:.1f} sims/s ({reps} calls in a {block_s:.2f} s block, "
         f"{per_call * 1e3:.2f} ms/call = kernel {kernel_ms:.2f} ms + host prep and glue "
         f"{host_ms:.2f} ms); twin {twin_ms:.1f} ms; kernel vs twin {main_diff:.2e}; "
         f"cr_sweep_max_err {max_err:.2e} (<= 1e-5, {PROBES} probes vs DOP853 1e-8 at "
-        f"{dop853_s:.2f} s/sim); max |norm - 1| {norm_dev:.2e}; launches {launches}",
+        f"{dop853_s:.2f} s/sim); max |norm - 1| {norm_dev:.2e}; launches {launches}; "
+        f"accepted steps per tile mean {accepted.mean():.1f} max {accepted.max()}, bound "
+        f"{b1_bound_ms:.3f} ms ({b1_bound_by})",
         flush=True,
     )
+
+    # phase 5: fixed-step kernel against its plain version
+    start = time.perf_counter()
+    b2_diff, b2_bitwise = phase_b2_modes(torch, ssw, _expand_lanes)
+    print(f"phase 5 sweep_magnus2 vs plain: {len(B2_MODES)} modes + trajectory x n in "
+          f"{B2_DIMS} agree (max diff {b2_diff:.2e} <= {B2_TOL}, bitwise: {b2_bitwise}) in "
+          f"{time.perf_counter() - start:.1f} s", flush=True)
+
+    # phase 6: the CR sweep gradient; phase 7: Lindblad config 3
+    grad = phase_grad(torch, ssw, Signal, cr_solver)
+    lind = phase_lindblad(torch, ssw, Signal, Solver)
 
     kernels = [{
         "name": "adaptive_sweep",
@@ -311,6 +678,24 @@ def main() -> int:
         "max_abs_err": main_diff,
         "ms": kernel_ms,
         "plain_ms": twin_ms,
+        "bound_ms": b1_bound_ms,
+        "bound_by": b1_bound_by,
+        "library_ms": None,
+    }, {
+        "name": "sweep_magnus2",
+        "route": "cuda",
+        "source": "qiskit_dynamics_tpu_torch/csrc/sweep_magnus2.cu",
+        "replaces": "qiskit_dynamics_tpu/ops/sweep_solver.py:95",
+        "launches": grad["launches"],
+        "max_abs_err": grad["max_abs_err"],
+        "ms": grad["ms"],
+        "plain_ms": grad["plain_ms"],
+        "bound_ms": grad["bound_ms"],
+        "bound_by": grad["bound_by"],
+        "library_ms": None,
+        "eager_engine_ms": grad["eager_ms"],
+        "lindblad_config3": {key: lind[key] for key in (
+            "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "eager_ms")},
     }]
     print(json.dumps({"kernels": kernels}))
     print(smi)

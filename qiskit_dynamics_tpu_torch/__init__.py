@@ -8,9 +8,14 @@ Hopper (``csrc/``), with an eager-PyTorch twin for tensors on the CPU.
 
 This package never imports ``jax``.
 
-Ported so far (the CR amplitude-sweep main path): signals, the dense
-rotating frame, operator collection, generator/Hamiltonian models, the RWA,
-the lockstep-adaptive dopri5 sweep (kernel and twin), the fused sweep glue,
+Entry points work on the CUDA device unless the caller passes
+``device="cpu"`` (``device=None`` raises on a machine without one).
+
+Ported so far: signals, the dense rotating frame (with its vectorized maps),
+the dense and vectorized-Lindblad operator collections, generator,
+Hamiltonian and vectorized Lindblad models, the RWA, the lockstep-adaptive
+dopri5 sweep (kernel B1 and twin), the fixed-step Magnus-2 sweep (kernel B2,
+plain version, eager engine, autograd wrapper), the fused sweep glue of both,
 scipy host solves, ``Solver`` and ``benchmarks.cr_solver``. ``ROADMAP.md``
 lists what is still to come.
 """
@@ -25,9 +30,16 @@ _torch.backends.cudnn.allow_tf32 = False
 __version__ = "0.1.0"
 
 from .exceptions import DynamicsError
-from .models import RotatingFrame, HamiltonianModel
+from .models import RotatingFrame, HamiltonianModel, LindbladModel
 from .signals import Signal, SignalSum, SignalList
-from .solvers import solve_ode, solve_lmde, Solver, OdeResult, fused_adaptive_sweep_solve
+from .solvers import (
+    solve_ode,
+    solve_lmde,
+    Solver,
+    OdeResult,
+    fused_adaptive_sweep_solve,
+    fused_sweep_solve,
+)
 
 from . import models
 from . import signals

@@ -1,10 +1,11 @@
 """Carry a JAX-package model across to the port.
 
 The JAX package's models are built from host arrays (its "weights"): a
-static operator, an operator stack, a frame operator, the ``in_frame_basis``
-flag and, for a ``Solver``, the RWA cutoff and carriers. These functions take
-those arrays as numpy and return the port's ``HamiltonianModel``/``Solver``
-computing the same thing. They accept numpy only, so this module never
+static operator, an operator stack, dissipators, a frame operator, the
+``in_frame_basis`` flag and, for a ``Solver``, the RWA cutoff and carriers.
+These functions take those arrays as numpy and return the port's
+``HamiltonianModel``/``LindbladModel``/``Solver`` computing the same thing,
+on ``device`` (``None``: the CUDA device). They accept numpy only, so this module never
 touches ``jax``: convert a JAX array with ``numpy.asarray`` first.
 """
 from __future__ import annotations
@@ -14,11 +15,11 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from .models import HamiltonianModel
+from .models import HamiltonianModel, LindbladModel
 from .models.rotating_frame import _enforce_anti_herm
 from .solvers import Solver
 
-__all__ = ["hamiltonian_model_from_arrays", "solver_from_arrays"]
+__all__ = ["hamiltonian_model_from_arrays", "lindblad_model_from_arrays", "solver_from_arrays"]
 
 
 def _host(name: str, x, stack: bool = False):
@@ -51,18 +52,55 @@ def hamiltonian_model_from_arrays(
     model subtracts it once, as the JAX model does. Signals are not carried:
     set them on the returned model.
     """
-    static_operator = _host("static_operator", static_operator)
     frame = _host("rotating_frame", rotating_frame)
-    if frame is not None and static_operator is not None:
-        frame_hamiltonian = 1j * _enforce_anti_herm(frame)  # Hermitian H_F
-        if frame_hamiltonian.ndim == 1:
-            frame_hamiltonian = np.diag(frame_hamiltonian)
-        static_operator = static_operator + frame_hamiltonian
     return HamiltonianModel(
-        static_operator=static_operator,
+        static_operator=_with_frame_hamiltonian(_host("static_operator", static_operator), frame),
         operators=_host("operators", operators, stack=True),
         rotating_frame=frame,
         in_frame_basis=bool(in_frame_basis),
+        device=device,
+        dtype=dtype,
+    )
+
+
+def _with_frame_hamiltonian(static_operator, frame):
+    """A reported static Hamiltonian has the frame Hamiltonian subtracted;
+    add it back, so the port's model subtracts it once, as the JAX model does."""
+    if frame is None or static_operator is None:
+        return static_operator
+    frame_hamiltonian = 1j * _enforce_anti_herm(frame)  # Hermitian H_F
+    if frame_hamiltonian.ndim == 1:
+        frame_hamiltonian = np.diag(frame_hamiltonian)
+    return static_operator + frame_hamiltonian
+
+
+def lindblad_model_from_arrays(
+    static_hamiltonian: Optional[np.ndarray],
+    hamiltonian_operators: Optional[np.ndarray],
+    static_dissipators: Optional[np.ndarray] = None,
+    dissipator_operators: Optional[np.ndarray] = None,
+    rotating_frame: Optional[np.ndarray] = None,
+    in_frame_basis: bool = False,
+    device=None,
+    dtype: torch.dtype = torch.complex128,
+) -> LindbladModel:
+    """The port's vectorized ``LindbladModel`` for a JAX ``LindbladModel``'s
+    arrays, as it reports them with ``in_frame_basis=False``
+    (``static_hamiltonian``, ``hamiltonian_operators``,
+    ``static_dissipators``, ``dissipator_operators``) and its
+    ``rotating_frame.frame_operator``. Signals are not carried: set them on
+    the returned model."""
+    frame = _host("rotating_frame", rotating_frame)
+    return LindbladModel(
+        static_hamiltonian=_with_frame_hamiltonian(
+            _host("static_hamiltonian", static_hamiltonian), frame
+        ),
+        hamiltonian_operators=_host("hamiltonian_operators", hamiltonian_operators, stack=True),
+        static_dissipators=_host("static_dissipators", static_dissipators, stack=True),
+        dissipator_operators=_host("dissipator_operators", dissipator_operators, stack=True),
+        rotating_frame=frame,
+        in_frame_basis=bool(in_frame_basis),
+        vectorized=True,
         device=device,
         dtype=dtype,
     )
@@ -75,15 +113,22 @@ def solver_from_arrays(
     in_frame_basis: bool = False,
     rwa_cutoff_freq: Optional[float] = None,
     rwa_carrier_freqs: Optional[Sequence[float]] = None,
+    static_dissipators: Optional[np.ndarray] = None,
+    dissipator_operators: Optional[np.ndarray] = None,
+    vectorized: bool = False,
     device=None,
     dtype: torch.dtype = torch.complex128,
 ) -> Solver:
     """The port's ``Solver`` for the arrays a JAX ``Solver`` was built from
-    (pre-RWA Hamiltonian terms, frame, RWA cutoff and carriers)."""
+    (pre-RWA Hamiltonian terms, dissipators, frame, RWA cutoff and
+    carriers)."""
     carriers = None if rwa_carrier_freqs is None else [float(f) for f in rwa_carrier_freqs]
     return Solver(
         static_hamiltonian=_host("static_hamiltonian", static_hamiltonian),
         hamiltonian_operators=_host("hamiltonian_operators", hamiltonian_operators, stack=True),
+        static_dissipators=_host("static_dissipators", static_dissipators, stack=True),
+        dissipator_operators=_host("dissipator_operators", dissipator_operators, stack=True),
+        vectorized=vectorized,
         rotating_frame=_host("rotating_frame", rotating_frame),
         in_frame_basis=bool(in_frame_basis),
         rwa_cutoff_freq=None if rwa_cutoff_freq is None else float(rwa_cutoff_freq),

@@ -1,19 +1,24 @@
 """Operator collections: the RHS math (dense).
 
-Counterpart of the dense ``OperatorCollection`` in
-``qiskit_dynamics_tpu/models/operator_collections.py``. The sparse and
-Lindblad collections are still to be ported (``ROADMAP.md``).
+Counterpart of the dense ``OperatorCollection`` and
+``VectorizedLindbladCollection`` in
+``qiskit_dynamics_tpu/models/operator_collections.py``. The sparse
+collections and the non-vectorized ``LindbladCollection`` are still to be
+ported (``ROADMAP.md``).
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..exceptions import DynamicsError
-from ..unified import to_tensor
+from ..unified import to_numpy, to_tensor
+from .model_utils import vec_commutator, vec_dissipator
 
-__all__ = ["OperatorCollection"]
+__all__ = ["OperatorCollection", "VectorizedLindbladCollection"]
 
 
 class OperatorCollection:
@@ -47,6 +52,21 @@ class OperatorCollection:
     def operators(self) -> Optional[torch.Tensor]:
         """The operator stack ``G_j``."""
         return self._operators
+
+    @functools.cached_property
+    def anti_hermitian(self) -> bool:
+        """Whether every operator is anti-Hermitian (``G = -iH``) to 1e-12 of
+        its largest entry. Checked once, on host copies; the operators are
+        never replaced, so the answer is kept."""
+        mats = [] if self._static_operator is None else [self._static_operator]
+        if self._operators is not None:
+            mats.extend(self._operators)
+        for a in mats:
+            a = to_numpy(a)
+            scale = max(1.0, float(np.max(np.abs(a))))
+            if not np.allclose(a, -a.conj().T, rtol=0.0, atol=1e-12 * scale):
+                return False
+        return True
 
     def _coefficients(self, coefficients) -> torch.Tensor:
         return to_tensor(coefficients).to(
@@ -85,3 +105,108 @@ class OperatorCollection:
         if y is None:
             return self.evaluate(coefficients)
         return self.evaluate_rhs(coefficients, y)
+
+
+class VectorizedLindbladCollection:
+    r"""Column-stacking vectorized Lindblad collection (dense).
+
+    Precomputes the ``(n^2, n^2)`` superoperators with :func:`vec_commutator`
+    and :func:`vec_dissipator` and delegates to an inner
+    :class:`OperatorCollection` over the concatenated
+    ``[hamiltonian, dissipator]`` coefficients. Operators are tensors, kept
+    on their device and in their dtype (the model places them).
+    """
+
+    def __init__(
+        self,
+        static_hamiltonian: Optional[torch.Tensor] = None,
+        hamiltonian_operators: Optional[torch.Tensor] = None,
+        static_dissipators: Optional[torch.Tensor] = None,
+        dissipator_operators: Optional[torch.Tensor] = None,
+    ):
+        self._static_hamiltonian = static_hamiltonian
+        self._hamiltonian_operators = hamiltonian_operators
+        self._static_dissipators = static_dissipators
+        self._dissipator_operators = dissipator_operators
+
+        static_operator = None
+        if static_hamiltonian is not None:
+            static_operator = vec_commutator(static_hamiltonian)
+        if static_dissipators is not None:
+            sd = torch.sum(vec_dissipator(static_dissipators), dim=0)
+            static_operator = sd if static_operator is None else static_operator + sd
+
+        op_list = []
+        if hamiltonian_operators is not None:
+            op_list.append(vec_commutator(hamiltonian_operators))
+        if dissipator_operators is not None:
+            op_list.append(vec_dissipator(dissipator_operators))
+        operators = torch.cat(op_list, dim=0) if op_list else None
+        self._operator_collection = OperatorCollection(
+            static_operator=static_operator, operators=operators
+        )
+
+    @property
+    def static_hamiltonian(self) -> Optional[torch.Tensor]:
+        """Static Hamiltonian term."""
+        return self._static_hamiltonian
+
+    @property
+    def hamiltonian_operators(self) -> Optional[torch.Tensor]:
+        """Hamiltonian operator stack."""
+        return self._hamiltonian_operators
+
+    @property
+    def static_dissipators(self) -> Optional[torch.Tensor]:
+        """Static dissipator stack."""
+        return self._static_dissipators
+
+    @property
+    def dissipator_operators(self) -> Optional[torch.Tensor]:
+        """Dissipator operator stack."""
+        return self._dissipator_operators
+
+    def evaluate_hamiltonian(self, ham_coefficients) -> torch.Tensor:
+        r"""Return ``H_d + Sigma_j s_j H_j`` (not vectorized)."""
+        if self._hamiltonian_operators is not None:
+            coeffs = to_tensor(ham_coefficients).to(
+                device=self._hamiltonian_operators.device, dtype=self._hamiltonian_operators.dtype
+            )
+            combo = torch.tensordot(coeffs, self._hamiltonian_operators, dims=1)
+            if self._static_hamiltonian is not None:
+                return combo + self._static_hamiltonian
+            return combo
+        if self._static_hamiltonian is not None:
+            return self._static_hamiltonian
+        raise DynamicsError(
+            f"{type(self).__name__} with None for both static_hamiltonian and "
+            "hamiltonian_operators cannot evaluate Hamiltonian."
+        )
+
+    def _concatenate_coefficients(self, ham_coefficients, dis_coefficients):
+        if self._hamiltonian_operators is not None and self._dissipator_operators is not None:
+            return torch.cat(
+                [torch.atleast_1d(to_tensor(ham_coefficients)),
+                 torch.atleast_1d(to_tensor(dis_coefficients))],
+                dim=-1,
+            )
+        if self._hamiltonian_operators is not None:
+            return ham_coefficients
+        if self._dissipator_operators is not None:
+            return dis_coefficients
+        return None
+
+    def evaluate(self, ham_coefficients, dis_coefficients) -> torch.Tensor:
+        """Return the ``(n^2, n^2)`` vectorized generator."""
+        coeffs = self._concatenate_coefficients(ham_coefficients, dis_coefficients)
+        return self._operator_collection.evaluate(coeffs)
+
+    def evaluate_rhs(self, ham_coefficients, dis_coefficients, y) -> torch.Tensor:
+        """Apply the vectorized generator to a column-stacked state."""
+        coeffs = self._concatenate_coefficients(ham_coefficients, dis_coefficients)
+        return self._operator_collection.evaluate_rhs(coeffs, y)
+
+    def __call__(self, ham_coefficients, dis_coefficients, y=None) -> torch.Tensor:
+        if y is None:
+            return self.evaluate(ham_coefficients, dis_coefficients)
+        return self.evaluate_rhs(ham_coefficients, dis_coefficients, y)

@@ -22,7 +22,7 @@ import torch
 
 from ..dtypes import complex_dtype
 from ..exceptions import DynamicsError
-from ..unified import to_numpy, to_tensor
+from ..unified import default_device, to_numpy, to_tensor
 
 __all__ = ["RotatingFrame"]
 
@@ -47,7 +47,8 @@ class RotatingFrame:
 
     Can be instantiated with ``None`` (trivial frame), a 1-d array (diagonal
     ``H`` or ``F``), or a 2-d Hermitian/anti-Hermitian array (eigendecomposed
-    once at construction, in complex128 on the host).
+    once at construction, in complex128 on the host). ``device=None`` is the
+    CUDA device (raises without one); pass ``device="cpu"`` for the host.
     """
 
     def __init__(
@@ -60,11 +61,13 @@ class RotatingFrame:
     ):
         if isinstance(frame_operator, RotatingFrame):
             frame_operator = frame_operator.frame_operator
-        self._device = torch.device(device) if device is not None else torch.device("cpu")
+        self._device = default_device(device)
         self._dtype = complex_dtype(dtype)
         self._frame_operator = frame_operator
         self._frame_basis = None
         self._frame_basis_adjoint = None
+        self._vectorized_frame_basis = None
+        self._vectorized_frame_basis_adjoint = None
 
         if frame_operator is None:
             self._dim = None
@@ -193,14 +196,21 @@ class RotatingFrame:
         op_to_add_in_fb=None,
         operator_in_frame_basis: bool = False,
         return_in_frame_basis: bool = False,
+        vectorized_operators: bool = False,
     ) -> torch.Tensor:
         r"""``exp(-tF) G exp(tF) + B`` (``B`` added in the frame basis);
-        ``(k, dim, dim)`` stacks broadcast."""
+        ``(k, dim, dim)`` stacks broadcast. With ``vectorized_operators``
+        the operators are column-stacked ``(dim^2,)`` vectors or
+        ``(dim^2, k)`` stacks of them, and so is the result."""
         operator = self._tensor(operator)
         if self._frame_operator is None:
             if op_to_add_in_fb is None:
                 return operator
             return operator + self._tensor(op_to_add_in_fb)
+        if vectorized_operators:
+            if operator.ndim == 2:
+                operator = operator.T
+            operator = _unvec(operator, self._dim)
 
         out = operator
         if not operator_in_frame_basis:
@@ -215,16 +225,33 @@ class RotatingFrame:
 
         if not return_in_frame_basis:
             out = self.operator_out_of_frame_basis(out)
+        if vectorized_operators:
+            out = _vec(out)
+            if out.ndim == 2:
+                out = out.T
         return out
 
     def operator_into_frame(
         self, t, operator, operator_in_frame_basis: bool = False,
-        return_in_frame_basis: bool = False,
+        return_in_frame_basis: bool = False, vectorized_operators: bool = False,
     ) -> torch.Tensor:
         """``exp(-tF) @ operator @ exp(tF)``."""
         return self._conjugate_and_add(
             t, operator, operator_in_frame_basis=operator_in_frame_basis,
             return_in_frame_basis=return_in_frame_basis,
+            vectorized_operators=vectorized_operators,
+        )
+
+    def operator_out_of_frame(
+        self, t, operator, operator_in_frame_basis: bool = False,
+        return_in_frame_basis: bool = False, vectorized_operators: bool = False,
+    ) -> torch.Tensor:
+        """``exp(tF) @ operator @ exp(-tF)``."""
+        return self.operator_into_frame(
+            -torch.as_tensor(t, dtype=torch.float64), operator,
+            operator_in_frame_basis=operator_in_frame_basis,
+            return_in_frame_basis=return_in_frame_basis,
+            vectorized_operators=vectorized_operators,
         )
 
     def generator_into_frame(
@@ -239,3 +266,54 @@ class RotatingFrame:
             operator_in_frame_basis=operator_in_frame_basis,
             return_in_frame_basis=return_in_frame_basis,
         )
+
+    # --- vectorized (dim^2) support ---------------------------------------
+    @property
+    def vectorized_frame_basis(self) -> Optional[torch.Tensor]:
+        """``kron(conj(C), C)`` for column-stacked operators (built on first use)."""
+        if self._frame_basis is None:
+            return None
+        if self._vectorized_frame_basis is None:
+            self._vectorized_frame_basis = torch.kron(self._frame_basis.conj(), self._frame_basis)
+            self._vectorized_frame_basis_adjoint = (
+                self._vectorized_frame_basis.conj().T.contiguous()
+            )
+        return self._vectorized_frame_basis
+
+    @property
+    def vectorized_frame_basis_adjoint(self) -> Optional[torch.Tensor]:
+        """Adjoint of :attr:`vectorized_frame_basis`."""
+        if self._frame_basis is None:
+            return None
+        if self._vectorized_frame_basis_adjoint is None:
+            _ = self.vectorized_frame_basis
+        return self._vectorized_frame_basis_adjoint
+
+    def vectorized_map_into_frame(
+        self, time, op, operator_in_frame_basis: bool = False,
+        return_in_frame_basis: bool = False,
+    ) -> torch.Tensor:
+        r"""Frame map of a column-stacked ``(dim^2, dim^2)`` superoperator:
+        ``(e^{tF}^T (x) e^{-tF}) op (e^{-tF}^T (x) e^{tF})``, a Hadamard
+        product with the flattened rank-1 phase outer product."""
+        op = self._tensor(op)
+        if self._frame_diag is None:
+            return op
+        if not operator_in_frame_basis and self._frame_basis is not None:
+            op = self.vectorized_frame_basis_adjoint @ (op @ self.vectorized_frame_basis)
+        expvals = self._phases(time, op.dtype)
+        temp_outer = (expvals.conj()[:, None] * expvals[None, :]).reshape(-1)
+        op = (temp_outer.conj()[:, None] * temp_outer[None, :]) * op
+        if not return_in_frame_basis and self._frame_basis is not None:
+            op = self.vectorized_frame_basis @ (op @ self.vectorized_frame_basis_adjoint)
+        return op
+
+
+def _vec(x: torch.Tensor) -> torch.Tensor:
+    """Column-stacking vec of the last two axes: (..., n, n) -> (..., n^2)."""
+    return x.transpose(-1, -2).reshape(x.shape[:-2] + (-1,))
+
+
+def _unvec(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Inverse of :func:`_vec`: (..., n^2) -> (..., n, n)."""
+    return x.reshape(x.shape[:-1] + (dim, dim)).transpose(-1, -2)

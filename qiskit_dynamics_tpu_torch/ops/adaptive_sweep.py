@@ -40,7 +40,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..unified import to_tensor
+from ..unified import default_device, to_tensor
 from .rk_tableaus import (
     DOPRI5_A as _A,
     DOPRI5_B as _B,
@@ -115,8 +115,9 @@ def prepare_inputs(
     eval_ts=None,
 ) -> SweepInputs:
     """Validate the arguments of :func:`sweep_dopri5_lockstep` and convert
-    them to kernel-ready planes on the device of ``y0``."""
-    device = y0.device if isinstance(y0, torch.Tensor) else torch.device("cpu")
+    them to kernel-ready planes on the device of ``y0`` (the CUDA device
+    when ``y0`` is not a tensor)."""
+    device = y0.device if isinstance(y0, torch.Tensor) else default_device()
     statr, stati = _planes(static_op, device)
     opsr, opsi = _planes(operators, device)
     k, n, _ = opsr.shape

@@ -1,0 +1,78 @@
+r"""Differentiable fixed-step sweep: kernel forward, eager-engine backward.
+
+Counterpart of ``sweep_expm_magnus2_ad`` in
+``qiskit_dynamics_tpu/ops/sweep_ad.py``. The JAX package pairs its Pallas
+primal with a plain-XLA adjoint; the port keeps that pairing:
+
+- **forward**: :func:`~qiskit_dynamics_tpu_torch.ops.sweep_solver.sweep_expm_magnus2`
+  (the CUDA kernel for CUDA tensors, the plain version on the CPU);
+- **backward**: a vector-Jacobian product through the eager engine
+  (:mod:`~qiskit_dynamics_tpu_torch.ops.xla_sweep`, checkpointed per step),
+  re-run at the saved inputs. It computes the same Magnus-2 and Horner
+  polynomial, including the ``eval_slots`` trajectory stores, so
+  trajectory gradients flow too.
+
+Gradients reach ``coefficients`` and ``y0``, and ``static_op`` and
+``operators`` when they require grad. There is no gradient with respect to
+``frame_omega`` (the JAX package has one; the port returns ``None``).
+The member-major variant ``sweep_expm_magnus2_member_ad`` waits for ROADMAP A8.
+"""
+from __future__ import annotations
+
+import torch
+
+from .sweep_solver import sweep_expm_magnus2
+from .xla_sweep import sweep_expm_magnus2_xla
+
+__all__ = ["sweep_expm_magnus2_ad"]
+
+
+class _SweepMagnus2(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, static_op, operators, frame_omega, coefficients, y0, statics):
+        dt, t0, order, hermitian, mode, tile_b, eval_slots = statics
+        ctx.statics = statics
+        ctx.save_for_backward(static_op, operators, frame_omega, coefficients, y0)
+        out = sweep_expm_magnus2(
+            static_op, operators, frame_omega, coefficients, y0, dt=dt, t0=t0, order=order,
+            tile_b=tile_b, hermitian=hermitian, mode=mode, eval_slots=eval_slots,
+        )
+        return out if eval_slots is not None else (out,)
+
+    @staticmethod
+    def backward(ctx, *cotangents):
+        dt, t0, order, hermitian, _, _, eval_slots = ctx.statics
+        static_op, operators, frame_omega, coefficients, y0 = ctx.saved_tensors
+        wants = ctx.needs_input_grad
+        with torch.enable_grad():
+            inputs = [
+                x.detach().requires_grad_(wants[i])
+                for i, x in enumerate((static_op, operators, frame_omega, coefficients, y0))
+            ]
+            inputs[2].requires_grad_(False)
+            out = sweep_expm_magnus2_xla(
+                inputs[0], inputs[1], inputs[2], inputs[3], inputs[4], dt=dt, t0=t0,
+                order=order, hermitian=hermitian, eval_slots=eval_slots,
+            )
+            outs = out if eval_slots is not None else (out,)
+            pairs = [(o, g) for o, g in zip(outs, cotangents) if g is not None]
+            wanted = [x for x in inputs if x.requires_grad]
+            grads = iter(torch.autograd.grad(
+                [o for o, _ in pairs], wanted, [g for _, g in pairs], allow_unused=True
+            ))
+        result = [next(grads) if x.requires_grad else None for x in inputs]
+        return (*result, None)
+
+
+def sweep_expm_magnus2_ad(
+    static_op, operators, frame_omega, coefficients, y0, dt, t0, order, hermitian, mode,
+    tile_b, eval_slots=None,
+):
+    """:func:`~qiskit_dynamics_tpu_torch.ops.sweep_solver.sweep_expm_magnus2`
+    with gradients (arguments as there, all tensors on one device). The
+    backward pass runs the eager engine in the dtype of ``coefficients``.
+    There is no gradient with respect to ``frame_omega``."""
+    statics = (float(dt), float(t0), int(order), bool(hermitian), mode, int(tile_b),
+               None if eval_slots is None else tuple(int(s) for s in eval_slots))
+    out = _SweepMagnus2.apply(static_op, operators, frame_omega, coefficients, y0, statics)
+    return out if eval_slots is not None else out[0]

@@ -1,17 +1,24 @@
-r"""Fused lockstep-adaptive sweep solver (the CR amplitude-sweep main path).
+r"""Fused sweep solvers: the fixed-step Magnus sweep and the lockstep-adaptive sweep.
 
-Counterpart of ``fused_adaptive_sweep_solve`` in
-``qiskit_dynamics_tpu/solvers/fused_sweep.py``: given a Hamiltonian model
-and a parameterized signal constructor, it builds the per-member amplitude
-tables for the whole batch in one vectorized pass, sorts members by drive
-magnitude (stiffness bucketing), maps members onto kernel lanes, runs
-:func:`~qiskit_dynamics_tpu_torch.ops.adaptive_sweep.sweep_dopri5_lockstep`
-(the CUDA kernel for a model on a CUDA device, the eager twin for a model on
-the CPU) and rotates the results back to the standard basis.
+Counterpart of ``fused_sweep_solve`` and ``fused_adaptive_sweep_solve`` in
+``qiskit_dynamics_tpu/solvers/fused_sweep.py``. Given a model and a
+parameterized signal constructor, they build the per-member signal tables
+for the whole batch in one ``torch.func.vmap`` pass, map members onto
+kernel lanes, run the kernel (CUDA for a model on a CUDA device, the plain
+version for a model on the CPU) and rotate the results back to the standard
+basis.
 
-Not yet ported (``ROADMAP.md``): the fixed-step ``fused_sweep_solve``, the
-gradient of this solve (recorded-grid replay), multi-device ``mesh=`` and
-vectorized Lindblad models.
+- ``fused_sweep_solve``: fixed-step Magnus-2 through kernel B2
+  (:mod:`~qiskit_dynamics_tpu_torch.ops.sweep_solver`), or the batch-major
+  eager engine (:mod:`~qiskit_dynamics_tpu_torch.ops.xla_sweep`);
+  differentiable (kernel forward, eager-engine backward); Hamiltonian and
+  vectorized Lindblad models.
+- ``fused_adaptive_sweep_solve``: lockstep-adaptive dopri5 through kernel B1
+  (:mod:`~qiskit_dynamics_tpu_torch.ops.adaptive_sweep`), Hamiltonian models.
+
+Not yet ported (``ROADMAP.md``): ``precision="df32"`` (A10), the member and
+polynomial engines (A8), the gradient of the adaptive solve (A5), ``mesh=``
+(A13), and the adaptive solve on Lindblad models.
 """
 from __future__ import annotations
 
@@ -22,47 +29,78 @@ import numpy as np
 import torch
 
 from ..exceptions import DynamicsError
-from ..models import GeneratorModel
-from ..models.operator_collections import OperatorCollection
+from ..models import GeneratorModel, LindbladModel
+from ..models.operator_collections import OperatorCollection, VectorizedLindbladCollection
+from ..ops.sweep_solver import (
+    _GAUSS3_D1,
+    _GAUSS3_D2,
+    _GAUSS3_D3,
+    _GAUSS_C1,
+    _GAUSS_C2,
+)
+from ..signals import SignalList
 from ..unified import is_tensor, to_numpy, to_tensor
+from .fixed_step_solvers import get_fixed_step_sizes
 
-__all__ = ["fused_adaptive_sweep_solve", "sweep_arguments"]
+__all__ = ["fused_sweep_solve", "fused_adaptive_sweep_solve", "sweep_arguments"]
 
 
 def _extract_generator_data(model, t_span, fn_name: str):
     """Shared validation + frame-basis data extraction for the fused solvers.
 
-    Returns ``(solve_dim, static_fb, ops_fb, omega, t0, tf)``: the static
-    generator and operator stack in the frame basis (tensors on the model's
-    device) and the float64 frame frequency-difference matrix
-    ``omega[i, m] = w_m - w_i``.
+    Returns ``(vectorized_lindblad, solve_dim, static_fb, ops_fb, omega, t0,
+    tf)``: the static generator and operator stack in the frame basis
+    (tensors on the model's device; ``(n^2, n^2)`` superoperators for a
+    vectorized ``LindbladModel``) and the float64 frame frequency-difference
+    matrix ``omega[a, c] = w_c - w_a``.
     """
-    if not isinstance(model, GeneratorModel):
-        raise NotImplementedError(
-            f"{fn_name} takes a GeneratorModel/HamiltonianModel in the port; vectorized "
-            "LindbladModel sweeps wait for ROADMAP A7 (fixed-step fused sweeps and Lindblad)."
-        )
-    coll = model._operator_collection
-    if coll.operators is None or not isinstance(coll, OperatorCollection):
-        raise DynamicsError(f"{fn_name} requires dense operators.")
+    vectorized_lindblad = isinstance(model, LindbladModel)
+    if vectorized_lindblad:
+        coll = model._operator_collection
+        if not isinstance(coll, VectorizedLindbladCollection):
+            raise DynamicsError(f"{fn_name} requires a dense vectorized collection.")
+        inner = coll._operator_collection
+    elif isinstance(model, GeneratorModel):
+        inner = model._operator_collection
+        if inner.operators is None or not isinstance(inner, OperatorCollection):
+            raise DynamicsError(f"{fn_name} requires dense operators.")
+    else:
+        raise DynamicsError(f"{fn_name} takes a GeneratorModel or a LindbladModel.")
 
     t0, tf = float(t_span[0]), float(t_span[-1])
     if tf <= t0:
         raise DynamicsError(f"{fn_name} requires t_span[1] > t_span[0].")
 
-    solve_dim = model.dim
-    static_fb = coll.static_operator
+    solve_dim = model.dim**2 if vectorized_lindblad else model.dim
+    static_fb = inner.static_operator
     if static_fb is None:
         static_fb = torch.zeros((solve_dim, solve_dim), dtype=model.dtype, device=model.device)
-    ops_fb = coll.operators
+    ops_fb = inner.operators
 
     frame_diag = model.rotating_frame.frame_diag
     if frame_diag is None:
         omega = torch.zeros((solve_dim, solve_dim), dtype=torch.float64, device=model.device)
     else:
         w = torch.imag(frame_diag.to(torch.complex128))
+        if vectorized_lindblad:
+            # column-stacking vec: index a = col*n + row carries the phase
+            # w_row - w_col
+            w = (w[None, :] - w[:, None]).reshape(-1)
         omega = w[None, :] - w[:, None]
-    return solve_dim, static_fb, ops_fb, omega, t0, tf
+    return vectorized_lindblad, solve_dim, static_fb, ops_fb, omega, t0, tf
+
+
+def _all_anti_hermitian(model) -> bool:
+    """Whether every frame-basis generator matrix is anti-Hermitian
+    (``G = -iH``), checked once per model (the model's operator collection
+    keeps the answer). True for Hamiltonian dynamics (real coefficients keep
+    a linear combination anti-Hermitian, and the elementwise frame rotation
+    preserves it since ``omega`` is antisymmetric); enables the one-matmul
+    Magnus-2 commutator."""
+    coll = model._operator_collection
+    if isinstance(coll, VectorizedLindbladCollection):
+        coll = coll._operator_collection
+    return coll.anti_hermitian
 
 
 def _tree_map(fn, tree):
@@ -83,6 +121,231 @@ def _leaves(tree):
             yield from _leaves(val)
     else:
         yield tree
+
+
+def _gauss_nodes(magnus_order: int) -> np.ndarray:
+    if magnus_order == 2:
+        return np.array([_GAUSS_C1, _GAUSS_C2])
+    return np.array([_GAUSS3_D1, _GAUSS3_D2, _GAUSS3_D3])
+
+
+def fused_sweep_solve(
+    model,
+    signals_fn: Callable,
+    params,
+    t_span,
+    max_dt: float,
+    y0,
+    expm_order: int = 8,
+    tile_b: Optional[int] = None,
+    rwa_signal_map: Optional[Callable] = None,
+    precision: str = "f32",
+    magnus_mode: str = "auto",
+    sweep_engine: str = "auto",
+    magnus_order: int = 2,
+    t_eval=None,
+    mesh=None,
+):
+    r"""Solve ``y' = G_b(t) y`` for a parameter sweep on a fixed step grid.
+
+    Args:
+        model: a dense ``GeneratorModel``/``HamiltonianModel``, or a
+            ``LindbladModel`` (vectorized; ``y0`` is then a density matrix
+            and ``signals_fn`` returns a ``(hamiltonian_signals,
+            dissipator_signals)`` tuple). Its device is where the sweep runs.
+        signals_fn: one member's parameters -> the model's signals (before
+            ``rwa_signal_map``). It is called under ``torch.func.vmap`` over
+            axis 0 of ``params`` (tensor arithmetic only).
+        params: a tensor (or nested tuple/list/dict of tensors) with the
+            sweep on axis 0. If it requires grad, the result is
+            differentiable with respect to it.
+        t_span: ``(t0, tf)``; the grid is the fewest equal steps no longer
+            than ``max_dt`` (the rule of the generic fixed-step solvers).
+        max_dt: maximum step size.
+        y0: shared initial state, (dim,) or (dim, m) (e.g. the identity);
+            (n, n) for a Lindblad model.
+        expm_order: Taylor order of the expm action.
+        tile_b: lane padding unit of the kernel engine, kept for the JAX
+            package's contract. ``None`` pads nothing: the CUDA kernel sizes
+            its own blocks and handles a ragged last one, and the plain
+            version is batched over members.
+        rwa_signal_map: maps ``signals_fn``'s output to the model's signals
+            (``Solver.solve_sweep`` wires the solver's map).
+        precision: ``"f32"``; ``"df32"`` waits for ROADMAP A10.
+        magnus_mode: the kernel's Magnus-2 evaluation (``"auto"``,
+            ``"matrix"``, ``"matrix_herm"``, ``"matvec"``).
+        sweep_engine: ``"pallas"`` (the name is kept: the fixed-step sweep
+            kernel B2, CUDA on the card, its plain version on the CPU),
+            ``"xla"`` (the batch-major eager engine), or ``"auto"``: the
+            kernel at ``solve_dim <= 32``. ``"member"``, ``"poly"`` and
+            ``"auto"`` above 32 wait for ROADMAP A8.
+        magnus_order: 2, or 3 on the ``"xla"`` engine.
+        t_eval: optional strictly increasing times on the step grid
+            ``t0 + j dt``; switches the return to trajectories.
+        mesh: multi-device sharding; waits for ROADMAP A13 (raises).
+
+    Returns:
+        (B, dim) or (B, dim, m) final states at ``t_span[1]`` in the
+        standard basis, (B, n, n) density matrices for a Lindblad model;
+        with ``t_eval``, ``(B, n_eval, ...)``.
+    """
+    if precision == "df32":
+        raise NotImplementedError(
+            'fused_sweep_solve(precision="df32") waits for ROADMAP A10 (native FP64 engines).'
+        )
+    if precision != "f32":
+        raise DynamicsError(f"unknown precision {precision!r}; use 'f32' or 'df32'.")
+    if mesh is not None:
+        raise NotImplementedError(
+            "fused_sweep_solve(mesh=...) waits for ROADMAP A13 (multi-device, torch.distributed)."
+        )
+    if magnus_order not in (2, 3):
+        raise DynamicsError(f"magnus_order must be 2 or 3, got {magnus_order!r}.")
+    vectorized_lindblad, solve_dim, static_fb, ops_fb, omega, t0, tf = _extract_generator_data(
+        model, t_span, "fused_sweep_solve"
+    )
+    device = model.device
+    _, h_list, n_steps_list = get_fixed_step_sizes((t0, tf), None, max_dt)
+    n_steps, dt = int(n_steps_list[0]), float(h_list[0])
+
+    if sweep_engine in ("member", "poly"):
+        raise NotImplementedError(
+            f"sweep_engine={sweep_engine!r} waits for ROADMAP A8 (large-dim engines); "
+            "use 'pallas' or 'xla'."
+        )
+    if sweep_engine == "auto":
+        if magnus_order == 3:
+            raise NotImplementedError(
+                "sweep_engine='auto' with magnus_order=3 picks the member or polynomial "
+                "engines, which wait for ROADMAP A8; pass sweep_engine='xla'."
+            )
+        if solve_dim > 32:
+            raise NotImplementedError(
+                f"sweep_engine='auto' at solve_dim={solve_dim} > 32 picks the member or "
+                "polynomial engines, which wait for ROADMAP A8; pass sweep_engine='xla'."
+            )
+        sweep_engine = "pallas"
+    if sweep_engine not in ("pallas", "xla"):
+        raise DynamicsError(
+            f"unknown sweep_engine {sweep_engine!r}; use 'pallas', 'xla' or 'auto'."
+        )
+    if sweep_engine == "pallas" and magnus_order == 3:
+        raise DynamicsError(
+            "magnus_order=3 is not implemented in the fixed-step kernel; use sweep_engine='xla'."
+        )
+
+    k = ops_fb.shape[0]
+
+    def signals_as_list(p) -> SignalList:
+        sigs = signals_fn(p)
+        if rwa_signal_map is not None:
+            sigs = rwa_signal_map(sigs)
+        if isinstance(sigs, tuple):  # Lindblad: (hamiltonian_signals, dissipator_signals)
+            ham_sigs, dis_sigs = sigs
+            sigs = list(ham_sigs or []) + list(dis_sigs or [])
+        if not isinstance(sigs, SignalList):
+            sigs = SignalList(list(sigs))
+        if len(sigs) != k:
+            raise DynamicsError(
+                f"signals_fn (after any rwa_signal_map) must produce {k} signals to "
+                f"match the model's operators; got {len(sigs)}."
+            )
+        return sigs
+
+    frame = model.rotating_frame
+    if vectorized_lindblad:
+        rho_fb = frame.operator_into_frame_basis(y0)
+        if rho_fb.shape != (model.dim, model.dim):
+            raise DynamicsError("a Lindblad sweep takes a (dim, dim) density matrix y0.")
+        y0_fb = rho_fb.T.reshape(-1)  # column-stacking vec
+    else:
+        y0_fb = frame.state_into_frame_basis(y0)
+    eval_slots, include_t0 = _fixed_eval_slots(t_eval, t0, tf, dt, n_steps)
+
+    # Gauss-time signal samples for the whole batch, float64 at absolute times
+    gauss_times = torch.as_tensor(
+        t0 + dt * (np.arange(n_steps)[:, None] + _gauss_nodes(magnus_order)[None, :]),
+        device=device,
+    )
+    params = _tree_map(lambda x: to_tensor(x, device=device), params)
+    coeffs = torch.movedim(
+        torch.func.vmap(lambda p: signals_as_list(p)(gauss_times))(params), 0, -1
+    ).to(device=device, dtype=torch.float32)  # (T, n_gauss, k, B)
+    hermitian = _all_anti_hermitian(model)
+
+    traj = None
+    if sweep_engine == "xla":
+        from ..ops.xla_sweep import sweep_expm_magnus2_xla
+
+        B = coeffs.shape[-1]
+        y0_mat = y0_fb.reshape(solve_dim, -1)
+        m = y0_mat.shape[1]
+        out = sweep_expm_magnus2_xla(
+            static_fb, ops_fb, omega, coeffs, y0_mat[None].expand(B, solve_dim, m), dt=dt,
+            t0=t0, order=expm_order, hermitian=hermitian, eval_slots=eval_slots,
+            magnus_order=magnus_order,
+        )
+        out_final, traj_bm = out if eval_slots is not None else (out, None)
+        # back to the member-major lane layout of the collectors
+        yf = out_final.permute(1, 0, 2).reshape(solve_dim, B * m)
+        if traj_bm is not None:
+            traj = traj_bm.permute(0, 2, 1, 3).reshape(-1, solve_dim, B * m)
+        y0_cols = y0_mat.repeat(1, B) if m > 1 else y0_mat.expand(solve_dim, B)
+    else:
+        from ..ops.sweep_ad import sweep_expm_magnus2_ad
+        from ..ops.sweep_solver import sweep_expm_magnus2
+
+        if tile_b is None:
+            tile_b = 1  # no padding: the kernel sizes its own blocks
+        coeffs, y0_cols, B, m = _expand_lanes(coeffs, y0_fb, solve_dim, tile_b)
+        args = (static_fb, ops_fb, omega, coeffs, y0_cols)
+        kwargs = dict(dt=dt, t0=t0, order=expm_order, hermitian=hermitian, mode=magnus_mode,
+                      tile_b=tile_b, eval_slots=eval_slots)
+        if torch.is_grad_enabled() and any(x.requires_grad for x in args):
+            out = sweep_expm_magnus2_ad(*args, **kwargs)
+        else:
+            out = sweep_expm_magnus2(*args, **kwargs)
+        yf, traj = out if eval_slots is not None else (out, None)
+
+    if t_eval is not None:
+        pieces = []
+        if include_t0:
+            pieces.append(y0_cols.to(yf.dtype)[None])
+        if traj is not None:
+            pieces.append(traj)
+        return _collect_trajectory(model, torch.cat(pieces, dim=0), B, m, vectorized_lindblad)
+    if vectorized_lindblad:
+        n = model.dim
+        rho = yf[:, :B].reshape(n, n, B).permute(2, 1, 0)  # (B, n, n)
+        return frame.operator_out_of_frame_basis(rho)
+    return _collect_lanes(model, yf, B, m)
+
+
+def _fixed_eval_slots(t_eval, t0: float, tf: float, dt: float, n_steps: int):
+    """On-grid ``t_eval`` -> (per-step trajectory slots or None, whether t0
+    is included)."""
+    if t_eval is None:
+        return None, False
+    te = _checked_t_eval(t_eval, t0, tf)
+    s = (te - t0) / dt
+    s_round = np.round(s).astype(int)
+    if np.any(np.abs(s - s_round) > 1e-6 * np.maximum(1.0, np.abs(s))):
+        raise DynamicsError(
+            "t_eval points must lie on the fixed step grid t0 + j*dt "
+            f"(dt={dt}); off-grid trajectory output is not supported by "
+            "the fused kernel."
+        )
+    if len(np.unique(s_round)) != len(s_round):
+        raise DynamicsError(
+            "t_eval contains points that map to the same fixed step "
+            f"(dt={dt}); remove the duplicates."
+        )
+    include_t0 = bool(s_round[0] == 0)
+    kept_steps = s_round[1:] if include_t0 else s_round
+    slots = np.full(n_steps, -1, dtype=int)
+    for j, st in enumerate(kept_steps):
+        slots[st - 1] = j
+    return (tuple(int(x) for x in slots) if len(kept_steps) else None), include_t0
 
 
 def fused_adaptive_sweep_solve(
@@ -179,9 +442,14 @@ def sweep_arguments(
     and the function that maps the kernel's output back to
     ``(B, dim[, m])`` / ``(B, n_eval, dim[, m])`` in member order.
     """
-    solve_dim, static_fb, ops_fb, omega, t0, tf = _extract_generator_data(
+    vectorized_lindblad, solve_dim, static_fb, ops_fb, omega, t0, tf = _extract_generator_data(
         model, t_span, "fused_adaptive_sweep_solve"
     )
+    if vectorized_lindblad:
+        raise NotImplementedError(
+            "fused_adaptive_sweep_solve on a vectorized LindbladModel is still to be ported "
+            "(ROADMAP A7, left over); use fused_sweep_solve."
+        )
     k = ops_fb.shape[0]
 
     def flat_signals(p):
@@ -217,9 +485,10 @@ def sweep_arguments(
             "fused_adaptive_sweep_solve does not support sweeping the carrier "
             "frequency — carriers must be the same for every sweep member."
         )
-    amps = _amplitude_tables(flat_signals, params, probe_sigs, freqs, t0, tf, envelope_resolution)
+    amps = _amplitude_tables(
+        flat_signals, params, probe_sigs, freqs, t0, tf, envelope_resolution, model.device
+    )
     env_dt = 0.0 if envelope_resolution is None else (tf - t0) / int(envelope_resolution)
-    amps = amps.to(model.device)
 
     # stiffness bucketing: each tile shares one step control, so members of
     # similar drive magnitude go to the same tile (a pure permutation)
@@ -253,10 +522,12 @@ def sweep_arguments(
     return args, kwargs, collect
 
 
-def _amplitude_tables(flat_signals, params, probe_sigs, freqs, t0, tf, envelope_resolution):
+def _amplitude_tables(flat_signals, params, probe_sigs, freqs, t0, tf, envelope_resolution,
+                      device):
     """(k, B) constant amplitudes or (k, S, B) envelope tables for the whole
-    batch, in one ``torch.func.vmap`` pass over ``signals_fn``."""
-    device = next((x.device for x in _leaves(params) if is_tensor(x)), torch.device("cpu"))
+    batch on ``device`` (the model's), in one ``torch.func.vmap`` pass over
+    ``signals_fn``."""
+    params = _tree_map(lambda x: to_tensor(x, device=device), params)
     if envelope_resolution is None:
         # reject non-constant envelopes (silently wrong otherwise): probe the
         # member-0 envelopes at a few interior times
@@ -297,13 +568,12 @@ def _amplitude_tables(flat_signals, params, probe_sigs, freqs, t0, tf, envelope_
             ]
             return torch.stack(rows)  # (k, S)
 
-    return torch.movedim(torch.func.vmap(amplitudes)(params), 0, -1)
+    return torch.movedim(torch.func.vmap(amplitudes)(params), 0, -1).to(device)
 
 
-def _eval_times(t_eval, t0: float, tf: float):
-    """``t_eval`` -> (elapsed kernel eval times or None, whether t0 is included)."""
-    if t_eval is None:
-        return None, False
+def _checked_t_eval(t_eval, t0: float, tf: float) -> np.ndarray:
+    """``t_eval`` as a float64 array, checked: non-empty, 1d, strictly
+    increasing, within ``[t0, tf]`` (with a 1e-9 slack)."""
     te = np.atleast_1d(to_numpy(t_eval).astype(float))
     if te.ndim != 1 or te.size == 0:
         raise DynamicsError("t_eval must be a non-empty 1d sequence of times.")
@@ -311,6 +581,14 @@ def _eval_times(t_eval, t0: float, tf: float):
         raise DynamicsError("t_eval must be strictly increasing.")
     if te[0] < t0 - 1e-9 or te[-1] > tf + 1e-9 * max(1.0, abs(tf)):
         raise DynamicsError(f"t_eval must lie within t_span ({t0}, {tf}).")
+    return te
+
+
+def _eval_times(t_eval, t0: float, tf: float):
+    """``t_eval`` -> (elapsed kernel eval times or None, whether t0 is included)."""
+    if t_eval is None:
+        return None, False
+    te = _checked_t_eval(t_eval, t0, tf)
     # snap tolerance covers the containment slack above: a te[0] in
     # [t0 - 1e-9, t0) would otherwise produce a negative elapsed time
     include_t0 = te[0] - t0 <= 1e-9 * max(1.0, abs(t0))
@@ -354,9 +632,16 @@ def _collect_lanes(model, yf: torch.Tensor, B: int, m: int) -> torch.Tensor:
     return torch.movedim(yf.reshape(yf.shape[0], B, m), 1, 0)
 
 
-def _collect_trajectory(model, traj: torch.Tensor, B: int, m: int) -> torch.Tensor:
-    """(n_eval, dim, lanes) frame-basis trajectory -> (B, n_eval, dim) or
-    (B, n_eval, dim, m)."""
+def _collect_trajectory(
+    model, traj: torch.Tensor, B: int, m: int, vectorized_lindblad: bool = False
+) -> torch.Tensor:
+    """(n_eval, dim, lanes) frame-basis trajectory -> (B, n_eval, dim),
+    (B, n_eval, dim, m), or (B, n_eval, n, n) density matrices for a
+    vectorized Lindblad model."""
+    if vectorized_lindblad:
+        n = model.dim
+        rho = traj[:, :, :B].reshape(-1, n, n, B).permute(3, 0, 2, 1)
+        return model.rotating_frame.operator_out_of_frame_basis(rho)
     traj = model.rotating_frame.state_out_of_frame_basis(traj[:, :, : B * m])
     if m == 1:
         return traj.permute(2, 0, 1)

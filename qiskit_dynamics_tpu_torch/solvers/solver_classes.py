@@ -1,25 +1,29 @@
-"""High-level ``Solver`` class (Hamiltonian models).
+"""High-level ``Solver`` class (Hamiltonian and vectorized Lindblad models).
 
-Counterpart of ``qiskit_dynamics_tpu/solvers/solver_classes.py`` for the
-Hamiltonian case without pulse channels: it builds a ``HamiltonianModel`` on
-an explicit ``device``/``dtype``, optionally applies the RWA with a cached
-signal map, and exposes
+Counterpart of ``qiskit_dynamics_tpu/solvers/solver_classes.py`` without
+pulse channels: it builds a ``HamiltonianModel``, or a vectorized
+``LindbladModel`` when dissipators are given, on an explicit
+``device``/``dtype`` (``device=None`` is the CUDA device), optionally applies
+the RWA with a cached signal map (Hamiltonian models), and exposes
 
-- ``solve`` for one simulation with a scipy method (host float64), and
-- ``solve_sweep(method="fused_dopri5")`` for a parameter sweep through the
-  lockstep-adaptive sweep kernel.
+- ``solve`` for one simulation with a scipy method (host float64);
+- ``solve_sweep`` for a parameter sweep: ``method="fused_dopri5"`` through
+  the lockstep-adaptive kernel, ``method="fused_magnus2"`` through the
+  fixed-step kernel (differentiable).
 
-Lindblad models, pulse channels and schedules, quantum_info state types and
-list-broadcast ``solve`` calls are still to be ported (``ROADMAP.md``).
+Pulse channels and schedules, quantum_info state types, the RWA of Lindblad
+models and list-broadcast ``solve`` calls are still to be ported
+(``ROADMAP.md``).
 """
 from __future__ import annotations
 
 from typing import List, Optional
 
+import numpy as np
 import torch
 
 from ..exceptions import DynamicsError
-from ..models import HamiltonianModel, rotating_wave_approximation
+from ..models import HamiltonianModel, LindbladModel, rotating_wave_approximation
 from ..signals import Signal, SignalList
 from ..unified import to_tensor
 from .results import OdeResult
@@ -29,33 +33,54 @@ __all__ = ["Solver"]
 
 
 class Solver:
-    """Solver for Hamiltonian dynamics."""
+    """Solver for Hamiltonian and (vectorized) Lindblad dynamics."""
 
     def __init__(
         self,
         static_hamiltonian=None,
         hamiltonian_operators=None,
+        static_dissipators=None,
+        dissipator_operators=None,
         rotating_frame=None,
         in_frame_basis: bool = False,
+        vectorized: bool = False,
         rwa_cutoff_freq: Optional[float] = None,
         rwa_carrier_freqs=None,
         validate: bool = True,
         device=None,
         dtype: torch.dtype = torch.complex128,
     ):
-        model = HamiltonianModel(
-            static_operator=static_hamiltonian,
-            operators=hamiltonian_operators,
-            rotating_frame=rotating_frame,
-            in_frame_basis=in_frame_basis,
-            validate=validate,
-            device=device,
-            dtype=dtype,
-        )
+        if static_dissipators is None and dissipator_operators is None:
+            model = HamiltonianModel(
+                static_operator=static_hamiltonian,
+                operators=hamiltonian_operators,
+                rotating_frame=rotating_frame,
+                in_frame_basis=in_frame_basis,
+                validate=validate,
+                device=device,
+                dtype=dtype,
+            )
+        else:
+            model = LindbladModel(
+                static_hamiltonian=static_hamiltonian,
+                hamiltonian_operators=hamiltonian_operators,
+                static_dissipators=static_dissipators,
+                dissipator_operators=dissipator_operators,
+                rotating_frame=rotating_frame,
+                in_frame_basis=in_frame_basis,
+                vectorized=vectorized,
+                validate=validate,
+                device=device,
+                dtype=dtype,
+            )
         self._rwa_signal_map = None
         self._model = model
 
         if rwa_cutoff_freq:
+            if isinstance(model, LindbladModel):
+                raise NotImplementedError(
+                    "the RWA of a LindbladModel is still to be ported (ROADMAP A7, left over)."
+                )
             self._model.signals = _rwa_seed_signals(rwa_carrier_freqs, hamiltonian_operators)
             self._model, self._rwa_signal_map = rotating_wave_approximation(
                 self._model, rwa_cutoff_freq, return_signal_map=True
@@ -63,27 +88,46 @@ class Solver:
             self._set_new_signals(None)
 
     @property
-    def model(self) -> HamiltonianModel:
+    def model(self):
         """The underlying model."""
         return self._model
 
     def solve(self, t_span, y0, signals=None, **kwargs) -> OdeResult:
         r"""Solve one simulation with a scipy method (``method="DOP853"`` by
-        default), signals given before the RWA. ``y0`` is an array or tensor
-        of shape (dim,) or (dim, m); the result's ``y`` is a host numpy array
-        with time on axis 0, in the standard basis."""
-        if kwargs.get("method", "DOP853") in ("fused_dopri5", "fused"):
+        default), signals given before the RWA (for a Lindblad model a list
+        of Hamiltonian signals or a ``(hamiltonian, dissipator)`` tuple).
+
+        ``y0`` is an array or tensor of shape (dim,) or (dim, m) for a
+        Hamiltonian model; for a vectorized Lindblad model a (dim, dim)
+        density matrix (the result is then (dim, dim) per time) or a
+        column-stacked (dim^2,) / (dim^2, m) state. The result's ``y`` is a
+        host numpy array with time on axis 0, in the standard basis."""
+        if kwargs.get("method", "DOP853") in (
+            "fused_dopri5", "fused", "fused_magnus2", "fused_expm"
+        ):
             raise DynamicsError(
-                "method='fused_dopri5' solves parameter sweeps: use Solver.solve_sweep."
+                "the fused methods solve parameter sweeps: use Solver.solve_sweep."
             )
         y0 = to_tensor(y0)
-        if y0.shape[0] != self.model.dim or y0.ndim > 2:
+        density_matrix = False
+        if isinstance(self.model, LindbladModel):
+            dim = self.model.dim
+            density_matrix = y0.shape == (dim, dim)
+            if density_matrix:
+                y0 = y0.T.reshape(-1)  # column-stacking vec
+            if y0.shape[0] != dim**2 or y0.ndim > 2:
+                raise DynamicsError(
+                    "Shape mismatch for initial state y0 and LindbladModel in vectorized mode."
+                )
+        elif y0.shape[0] != self.model.dim or y0.ndim > 2:
             raise DynamicsError("Shape mismatch for initial state y0 and HamiltonianModel.")
         self._set_new_signals(signals)
         try:
             results = solve_lmde(generator=self.model, t_span=t_span, y0=y0, **kwargs)
         finally:
             self._set_new_signals(None)
+        if density_matrix:
+            results.y = np.swapaxes(results.y.reshape(-1, dim, dim), 1, 2)
         return results
 
     def solve_sweep(self, signals_fn, params, t_span, y0, method: str = "fused_dopri5",
@@ -93,15 +137,21 @@ class Solver:
         ``signals_fn`` maps one member's parameters to the model's signal
         list as given to :meth:`solve` (before the RWA: the solver's RWA
         signal map is wired automatically); ``params`` carries the sweep on
-        axis 0. ``method="fused_dopri5"`` (alias ``"fused"``) is the
-        lockstep-adaptive kernel; the other JAX methods (``fused_magnus2``,
-        ``chebyshev``) are still to be ported. ``kwargs`` go to
-        :func:`~qiskit_dynamics_tpu_torch.solvers.fused_sweep.fused_adaptive_sweep_solve`.
+        axis 0 (a ``(hamiltonian_signals, dissipator_signals)`` tuple for a
+        Lindblad model). ``method="fused_dopri5"`` (alias ``"fused"``) is the
+        lockstep-adaptive kernel
+        (:func:`~qiskit_dynamics_tpu_torch.solvers.fused_sweep.fused_adaptive_sweep_solve`);
+        ``method="fused_magnus2"`` (alias ``"fused_expm"``) is the
+        fixed-step kernel, which needs ``max_dt`` and is differentiable in
+        ``params``
+        (:func:`~qiskit_dynamics_tpu_torch.solvers.fused_sweep.fused_sweep_solve`).
+        The JAX package's ``chebyshev`` method waits for ROADMAP A10.
+        ``kwargs`` go to the chosen solver.
 
         Returns:
-            (B, dim) final states (or trajectories with ``t_eval``).
+            (B, ...) final states (or trajectories with ``t_eval``).
         """
-        from .fused_sweep import fused_adaptive_sweep_solve
+        from .fused_sweep import fused_adaptive_sweep_solve, fused_sweep_solve
 
         rwa_signal_map = kwargs.pop("rwa_signal_map", self._rwa_signal_map)
         if method in ("fused_dopri5", "fused"):
@@ -109,13 +159,24 @@ class Solver:
                 self.model, signals_fn, params, t_span=t_span, y0=y0,
                 rwa_signal_map=rwa_signal_map, **kwargs,
             )
+        if method in ("fused_magnus2", "fused_expm"):
+            return fused_sweep_solve(
+                self.model, signals_fn, params, t_span=t_span, y0=y0,
+                rwa_signal_map=rwa_signal_map, **kwargs,
+            )
         raise DynamicsError(
-            f"solve_sweep method {method!r} is not ported yet; use 'fused_dopri5'."
+            f"solve_sweep method {method!r} is not ported yet; use 'fused_dopri5' or "
+            "'fused_magnus2'."
         )
 
     def _set_new_signals(self, signals):
         """Set (possibly RWA-mapped) signals on the model."""
-        if signals is not None and self._rwa_signal_map:
+        if isinstance(self.model, LindbladModel):
+            if signals is None:
+                signals = (None, None)
+            elif not isinstance(signals, tuple):
+                signals = (signals, None)
+        elif signals is not None and self._rwa_signal_map:
             signals = self._rwa_signal_map(signals)
         self.model.signals = signals
 

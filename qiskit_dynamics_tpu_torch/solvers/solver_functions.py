@@ -6,8 +6,9 @@ Counterpart of the scipy-method branch of
 baseline of the sweep kernel). The fixed-step, jax-native adaptive and
 LMDE-specific methods are still to be ported (``ROADMAP.md``).
 
-Models are flipped into the frame eigenbasis for solving and the results
-rotated back (the frame-basis fast path).
+Models (Hamiltonian/generator models and vectorized Lindblad models) are
+flipped into the frame eigenbasis for solving and the results rotated back
+(the frame-basis fast path).
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ import torch
 from scipy.integrate import OdeSolver
 
 from ..exceptions import DynamicsError
-from ..models import BaseGeneratorModel, GeneratorModel
+from ..models import BaseGeneratorModel, GeneratorModel, LindbladModel
 from .results import OdeResult
 from .scipy_solve_ivp import scipy_solve_ivp, SOLVE_IVP_METHODS
 
@@ -91,8 +92,14 @@ def setup_generator_model_rhs_y0_in_frame_basis(
     ``generator_model.in_frame_basis`` (restored by the caller).
     """
     model_in_frame_basis = generator_model.in_frame_basis
-    if not model_in_frame_basis and isinstance(generator_model, GeneratorModel):
-        y0 = generator_model.rotating_frame.state_into_frame_basis(y0)
+    frame = generator_model.rotating_frame
+    if not model_in_frame_basis:
+        if isinstance(generator_model, LindbladModel):
+            y0 = frame._tensor(y0)
+            if frame.frame_basis is not None:
+                y0 = frame.vectorized_frame_basis_adjoint @ y0
+        elif isinstance(generator_model, GeneratorModel):
+            y0 = frame.state_into_frame_basis(y0)
     generator_model.in_frame_basis = True
 
     def rhs(t, y):
@@ -106,7 +113,10 @@ def results_y_out_of_frame_basis(generator_model, results_y, y0_ndim: int):
     frame = generator_model.rotating_frame
     if frame.frame_basis is None:
         return results_y
-    basis = frame.frame_basis.cpu().numpy()
+    if isinstance(generator_model, LindbladModel):
+        basis = frame.vectorized_frame_basis.cpu().numpy()
+    else:
+        basis = frame.frame_basis.cpu().numpy()
     if y0_ndim == 1:
         return results_y @ basis.T
     return basis @ results_y

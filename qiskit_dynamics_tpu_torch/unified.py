@@ -12,7 +12,21 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["is_tensor", "to_numpy", "to_tensor"]
+__all__ = ["default_device", "is_tensor", "to_numpy", "to_tensor"]
+
+
+def default_device(device=None) -> torch.device:
+    """The device an entry point works on: ``device`` if given, else the
+    CUDA device. Without a CUDA device ``device=None`` raises: the port never
+    drops to the CPU unless the caller asks for it (``device="cpu"``)."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "device=None means the CUDA device, and torch finds none; pass device='cpu' "
+            "to run on the host."
+        )
+    return torch.device("cuda")
 
 
 def is_tensor(x) -> bool:

@@ -112,7 +112,7 @@ def _frame_pair(kind: str, n: int = 4):
         op = -1j * random_hermitian(gen, n)
     else:  # diagonal
         op = gen.normal(size=n)
-    return jmodels.RotatingFrame(op), tmodels.RotatingFrame(op)
+    return jmodels.RotatingFrame(op), tmodels.RotatingFrame(op, device="cpu")
 
 
 @pytest.mark.parametrize("kind", ["hermitian", "anti_hermitian", "diagonal"])
@@ -155,7 +155,9 @@ def test_frame_basis_roundtrip():
 
 def test_frame_rejects_non_hermitian():
     with pytest.raises(DynamicsError, match="Hermitian"):
-        tmodels.RotatingFrame(rng(26).normal(size=(3, 3)) + 1j * np.triu(np.ones((3, 3))))
+        tmodels.RotatingFrame(
+            rng(26).normal(size=(3, 3)) + 1j * np.triu(np.ones((3, 3))), device="cpu"
+        )
 
 
 # --- operator collection -----------------------------------------------------
@@ -185,7 +187,7 @@ def _model_pair(frame_kind: str, in_frame_basis: bool):
     jmodel = jmodels.HamiltonianModel(h0, ops, signals=jsig, rotating_frame=frame,
                                       in_frame_basis=in_frame_basis)
     tmodel = tmodels.HamiltonianModel(h0, ops, signals=tsig, rotating_frame=frame,
-                                      in_frame_basis=in_frame_basis)
+                                      in_frame_basis=in_frame_basis, device="cpu")
     return jmodel, tmodel
 
 
@@ -211,16 +213,16 @@ def test_hamiltonian_model_in_frame_basis(frame_kind):
 
 def test_hamiltonian_model_validates():
     with pytest.raises(DynamicsError, match="Hermitian"):
-        tmodels.HamiltonianModel(static_operator=np.triu(np.ones((3, 3))))
+        tmodels.HamiltonianModel(static_operator=np.triu(np.ones((3, 3))), device="cpu")
     with pytest.raises(DynamicsError, match="same length"):
         tmodels.HamiltonianModel(np.eye(2), np.stack([np.eye(2)]),
-                                 signals=[tsignals.Signal(1.0), tsignals.Signal(2.0)])
+                                 signals=[tsignals.Signal(1.0), tsignals.Signal(2.0)], device="cpu")
 
 
 # --- RWA -----------------------------------------------------------------------
 @pytest.fixture(scope="module")
 def cr_pair():
-    return jax_cr_solver(dim=2), torch_cr_solver(dim=2)
+    return jax_cr_solver(dim=2), torch_cr_solver(dim=2, device="cpu")
 
 
 @pytest.mark.parametrize("in_frame_basis", [False, True])
@@ -258,7 +260,8 @@ def test_rwa_generic_model_matches():
     h0 = np.diag(np.array([0.0, 5.0, 10.3, 15.1]) * 2 * np.pi) + 0.05 * random_hermitian(gen, 4)
     op = random_hermitian(gen, 4)
     jm = jmodels.HamiltonianModel(h0, [op], signals=[jsignals.Signal(1.0, 5.0)], rotating_frame=h0)
-    tm = tmodels.HamiltonianModel(h0, [op], signals=[tsignals.Signal(1.0, 5.0)], rotating_frame=h0)
+    tm = tmodels.HamiltonianModel(h0, [op], signals=[tsignals.Signal(1.0, 5.0)], rotating_frame=h0,
+                                device="cpu")
     jr = jmodels.rotating_wave_approximation(jm, 2.0)
     tr = tmodels.rotating_wave_approximation(tm, 2.0)
     assert_rel_close(tr.operators, jr.operators, RTOL)
@@ -272,7 +275,7 @@ def test_interop_model_from_jax_arrays(cr_pair):
     tmodel = interop.hamiltonian_model_from_arrays(
         np.asarray(jmodel.static_operator), np.asarray(jmodel.operators),
         rotating_frame=np.asarray(jmodel.rotating_frame.frame_operator),
-        in_frame_basis=jmodel.in_frame_basis,
+        in_frame_basis=jmodel.in_frame_basis, device="cpu",
     )
     jmodel.signals = jsolver._rwa_signal_map([jsignals.Signal(0.02, w1)])
     tmodel.signals = [tsignals.Signal(0.02, w1), tsignals.Signal(0.02, w1, -np.pi / 2)]
@@ -294,7 +297,7 @@ def test_interop_solver_from_jax_inputs(cr_pair):
     drive = 2 * np.pi * np.kron(a + adag, ident)
     tsolver = interop.solver_from_arrays(
         h0, [drive], rotating_frame=np.diag(h0), rwa_cutoff_freq=(5.0 + w1) / 2,
-        rwa_carrier_freqs=[w1],
+        rwa_carrier_freqs=[w1], device="cpu",
     )
     assert_rel_close(tsolver.model.operators, jsolver.model.operators, RTOL)
     assert_rel_close(tsolver.model.static_operator, jsolver.model.static_operator, RTOL)
@@ -302,4 +305,4 @@ def test_interop_solver_from_jax_inputs(cr_pair):
 
 def test_interop_takes_numpy_only():
     with pytest.raises(TypeError, match="numpy"):
-        interop.hamiltonian_model_from_arrays(torch.eye(2), None)
+        interop.hamiltonian_model_from_arrays(torch.eye(2), None, device="cpu")

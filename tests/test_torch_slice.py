@@ -54,7 +54,7 @@ def small_sweep():
         jsolver.model, jfn, jnp.asarray(amps), interpret=True,
         rwa_signal_map=jsolver._rwa_signal_map, differentiable=False, t_eval=t_eval, **kwargs,
     )
-    tsolver, _ = cr_solver(dim=2)
+    tsolver, _ = cr_solver(dim=2, device="cpu")
     tfn = lambda a: [Signal(lambda t: a * AMP_SCALE, carrier_freq=w1)]
     port_out = tsolver.solve_sweep(tfn, torch.as_tensor(amps), t_eval=t_eval, **kwargs)
     return amps, np.asarray(jax_out), port_out
@@ -70,7 +70,7 @@ def test_solve_sweep_keeps_member_order_and_t0(small_sweep):
     """Bucketing is undone (member i is amplitude i) and t_eval[0] = t0 is y0."""
     amps, _, port_out = small_sweep
     np.testing.assert_array_equal(port_out[:, 0].numpy(), np.tile([1, 0, 0, 0], (6, 1)))
-    solver, w1 = cr_solver(dim=2)
+    solver, w1 = cr_solver(dim=2, device="cpu")
     y0 = np.eye(4, dtype=complex)[0]
     for i in (0, 5):
         ref = solver.solve(
@@ -83,7 +83,7 @@ def test_solve_sweep_keeps_member_order_and_t0(small_sweep):
 @pytest.fixture(scope="module")
 def full_width():
     """The main path at full width (n = 16) for 3 members, on the twin."""
-    solver, w1 = cr_solver()
+    solver, w1 = cr_solver(device="cpu")
     y0 = np.zeros(16, dtype=complex)
     y0[0] = 1.0
     amps = np.array([0.25, 0.625, 1.0])
@@ -111,7 +111,7 @@ def test_full_width_cr_sweep_within_bar(full_width):
 
 def test_dop853_matches_jax():
     jsolver, w1 = jax_cr_solver()
-    tsolver, _ = cr_solver()
+    tsolver, _ = cr_solver(device="cpu")
     y0 = np.zeros(16, dtype=complex)
     y0[0] = 1.0
     kwargs = dict(t_span=[0.0, 20.0], y0=y0, method="DOP853", atol=1e-10, rtol=1e-10,
@@ -123,7 +123,7 @@ def test_dop853_matches_jax():
 
 
 def test_gradient_request_raises():
-    solver, w1 = cr_solver(dim=2)
+    solver, w1 = cr_solver(dim=2, device="cpu")
     amps = torch.tensor([0.3, 0.6], dtype=torch.float64, requires_grad=True)
     with pytest.raises(NotImplementedError, match="gradient"):
         solver.solve_sweep(
@@ -133,7 +133,7 @@ def test_gradient_request_raises():
 
 
 def test_mesh_raises():
-    solver, w1 = cr_solver(dim=2)
+    solver, w1 = cr_solver(dim=2, device="cpu")
     with pytest.raises(NotImplementedError, match="A13"):
         fused_adaptive_sweep_solve(
             solver.model, lambda a: [Signal(lambda t: a, carrier_freq=w1)],
@@ -144,7 +144,11 @@ def test_mesh_raises():
 def test_import_does_not_load_jax():
     code = (
         "import sys, qiskit_dynamics_tpu_torch, qiskit_dynamics_tpu_torch.interop, "
-        "qiskit_dynamics_tpu_torch.benchmarks, qiskit_dynamics_tpu_torch.kernels._build; "
+        "qiskit_dynamics_tpu_torch.benchmarks, qiskit_dynamics_tpu_torch.kernels._build, "
+        "qiskit_dynamics_tpu_torch.ops.sweep_solver, qiskit_dynamics_tpu_torch.ops.xla_sweep, "
+        "qiskit_dynamics_tpu_torch.ops.sweep_ad, qiskit_dynamics_tpu_torch.models.lindblad_model, "
+        "qiskit_dynamics_tpu_torch.models.model_utils, "
+        "qiskit_dynamics_tpu_torch.solvers.fixed_step_solvers; "
         "print('jax' in sys.modules)"
     )
     root = Path(__file__).resolve().parent.parent
