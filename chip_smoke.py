@@ -11,9 +11,11 @@ raises and exits non-zero:
 1. device: a CUDA device is required; prints the card's name and power limit
    as ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
    reports them.
-2. build: compiles both kernels, the lockstep-adaptive dopri5 sweep
-   (``qiskit_dynamics_tpu_torch/csrc/adaptive_sweep.cu``) and the fixed-step
-   Magnus-2 sweep (``csrc/sweep_magnus2.cu``), one nvcc each, in parallel.
+2. build: compiles the four kernels, the lockstep-adaptive dopri5 sweep
+   (``qiskit_dynamics_tpu_torch/csrc/adaptive_sweep.cu``), the fixed-step
+   Magnus-2 sweep (``csrc/sweep_magnus2.cu``), the member-major Magnus-2/3
+   sweep (``csrc/member_sweep.cu``) and the Horner expm action
+   (``csrc/horner_apply.cu``), one nvcc each, in parallel.
 3. kernel against its eager twin on the card, in every mode (constant
    envelopes with padded lanes, envelope tables, eval times, budget
    exhaustion, stall guard) at n = 4, 9, 16, 27: final states within 1e-5,
@@ -42,6 +44,27 @@ raises and exits non-zero:
    with amplitude damping, vectorized (solve_dim 4), 10,240 amplitudes,
    T = 20, max_dt = 0.02 (1,000 steps) through ``solve_sweep``; three probes
    within 1e-5 of the port's float64 DOP853 (atol = rtol = 1e-10).
+8. the member-sweep and Horner kernels against their plain versions on the
+   card: member sweep with Magnus-2 and Magnus-3, ``hermitian`` on and off,
+   at n = 8, 64, and (Magnus-2) 96, 100, 128, 37 members, 5 steps; Horner at
+   n = 64, 96, 100, 256 (cluster-resident kernel, 1 to 4 blocks per member)
+   and 512 (streaming kernel), orders 8 and 12, 37 members, and the
+   streaming kernel forced at n = 256. Both kernels fuse
+   multiply-adds and sum in their own order, so they agree with
+   ``torch.matmul`` to float32 roundoff: within 1e-5 on norm-1 states.
+9. the Lindblad dim-8 sweep at full width (a driven 8-level transmon with
+   amplitude damping, vectorized, solve_dim 64, 10,240 amplitudes, T = 20)
+   through ``solve_sweep(method="fused_magnus2")`` with ``sweep_engine``
+   left at "auto", which must launch the member-sweep kernel: Magnus-3 at
+   max_dt = 0.05 (400 steps) within 4e-6 and Magnus-2 at max_dt = 0.02
+   (1,000 steps) within 2.5e-6 of the port's float64 DOP853
+   (atol = rtol = 1e-12) at members 0, 5,120 and 10,239.
+10. the Lindblad dim-256 sweep at full width (two 4-level transmons with
+   amplitude damping, vectorized, solve_dim 256, 2,048 amplitudes, T = 10,
+   max_dt = 0.08: 125 steps, Magnus-3) through ``sweep_engine="poly"``,
+   whose ``poly_horner="auto"`` must launch the Horner kernel once per step:
+   members 0 and 2,047 within 2e-6 of DOP853 (1e-12); the einsum route and
+   the eager engine are timed once each beside it.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Nothing of JAX is imported.
@@ -73,6 +96,14 @@ LIND_SWEEP = 10_240
 LIND_T = 20.0
 LIND_MAX_DT = 0.02
 LIND_TOL = 1e-5
+B3_TOL = 1e-5  # member sweep and Horner kernels vs torch.matmul: float32 roundoff
+L8_SWEEP = 10_240
+L8_T = 20.0
+L8_ROWS = ((3, 0.05, 4e-6), (2, 0.02, 2.5e-6))  # (magnus_order, max_dt, limit vs DOP853 1e-12)
+L256_SWEEP = 2_048
+L256_T = 10.0
+L256_MAX_DT = 0.08
+L256_TOL = 2e-6
 # the card's peaks (H100 SXM data sheet): FP32 outside the tensor cores, HBM
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
@@ -225,6 +256,15 @@ def cuda_ms(torch, fn, reps):
     return begin.elapsed_time(end) / reps
 
 
+def timed_ms(torch, fn):
+    """Host milliseconds of one synchronized call of ``fn`` and its result."""
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - start) * 1e3, out
+
+
 def bound(flops: float, nbytes: float):
     """(bound_ms, bound_by): the larger of the FP32 time and the memory time."""
     t_ops, t_bytes = flops / PEAK_F32, nbytes / PEAK_BYTES
@@ -260,21 +300,22 @@ def b2_bound(inputs):
 
 
 class Capture:
-    """Records the inputs of the fixed-step kernel's launches on one path."""
+    """Keeps the arguments of the last kernel launch a wrapper module made on
+    one path (only the last: a Horner launch's planes are a gigabyte)."""
 
-    def __init__(self, ssw):
-        self.ssw, self.inputs, self._launch = ssw, [], ssw._launch_kernel
+    def __init__(self, module):
+        self.module, self.last, self._launch = module, None, module._launch_kernel
 
     def __enter__(self):
-        def launch(inputs):
-            self.inputs.append(inputs)
-            return self._launch(inputs)
+        def launch(*args):
+            self.last = args
+            return self._launch(*args)
 
-        self.ssw._launch_kernel = launch
+        self.module._launch_kernel = launch
         return self
 
     def __exit__(self, *exc):
-        self.ssw._launch_kernel = self._launch
+        self.module._launch_kernel = self._launch
 
 
 # --------------------------------------------------------------------------
@@ -383,7 +424,7 @@ def phase_grad(torch, ssw, Signal, cr_solver):
     check(yf.shape == (GRAD_SWEEP, dim) and g.shape == (GRAD_SWEEP,), "gradient path shapes")
     check(bool(torch.isfinite(yf).all()) and bool(torch.isfinite(g).all()),
           "non-finite values on the gradient path")
-    inputs = cap.inputs[-1]
+    (inputs,) = cap.last
 
     probes = torch.as_tensor([0, GRAD_SWEEP // 2, GRAD_SWEEP - 1], device=cuda)
     n_steps = inputs.steps
@@ -407,11 +448,8 @@ def phase_grad(torch, ssw, Signal, cr_solver):
     grad_call, grad_block, grad_reps = steady_time(torch, value_and_grad)
     kernel_ms = cuda_ms(torch, lambda: ssw._launch_kernel(inputs), reps=5)
     kernel_out = ssw._launch_kernel(inputs)[0]
-    torch.cuda.synchronize()
-    start = time.perf_counter()
-    plain_out = ssw.sweep_expm_magnus2_plain(inputs)[0]
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - start) * 1e3
+    plain_ms, plain = timed_ms(torch, lambda: ssw.sweep_expm_magnus2_plain(inputs))
+    plain_out = plain[0]
     diff = float((kernel_out - plain_out).abs().max())
     check(diff <= B2_TOL, f"gradient-path kernel vs plain {diff:.2e} > {B2_TOL}")
     eager_ms = eager_engine_ms(torch, inputs)
@@ -490,7 +528,7 @@ def phase_lindblad(torch, ssw, Signal, Solver):
     check(launches > 0, "the Lindblad path did not launch the sweep_magnus2 kernel")
     check(out.shape == (LIND_SWEEP, 2, 2), f"Lindblad output shape {tuple(out.shape)}")
     check(bool(torch.isfinite(out).all()), "non-finite Lindblad density matrices")
-    inputs = cap.inputs[-1]
+    (inputs,) = cap.last
     trace_dev = float((out[:, 0, 0] + out[:, 1, 1] - 1.0).abs().max())
 
     host = lindblad_solver(Solver, "cpu")
@@ -508,11 +546,8 @@ def phase_lindblad(torch, ssw, Signal, Solver):
     per_call, block_s, reps = steady_time(torch, sweep)
     kernel_ms = cuda_ms(torch, lambda: ssw._launch_kernel(inputs), reps=5)
     kernel_out = ssw._launch_kernel(inputs)[0]
-    torch.cuda.synchronize()
-    start = time.perf_counter()
-    plain_out = ssw.sweep_expm_magnus2_plain(inputs)[0]
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - start) * 1e3
+    plain_ms, plain = timed_ms(torch, lambda: ssw.sweep_expm_magnus2_plain(inputs))
+    plain_out = plain[0]
     diff = float((kernel_out - plain_out).abs().max())
     check(diff <= B2_TOL, f"Lindblad kernel vs plain {diff:.2e} > {B2_TOL}")
     eager_ms = eager_engine_ms(torch, inputs)
@@ -533,6 +568,246 @@ def phase_lindblad(torch, ssw, Signal, Solver):
                 sims_per_s=LIND_SWEEP / per_call)
 
 
+# --------------------------------------------------------------------------
+# phase 8: the member-sweep and Horner kernels against their plain versions
+# --------------------------------------------------------------------------
+def member_problem(torch, n, members, steps, magnus, hermitian, k=2):
+    """Seeded member-sweep inputs on the card: norm-1 states, generators of
+    norm ~3 (so a step of 0.05 moves the state by ~0.15), a diagonal frame."""
+    gen = np.random.default_rng(1000 * magnus + n)
+    a = gen.normal(size=(k + 1, n, n)) + 1j * gen.normal(size=(k + 1, n, n))
+    if hermitian:
+        a = -1j * (a + np.conj(np.transpose(a, (0, 2, 1)))) / 2
+    a = a * (1.5 / np.sqrt(n))
+    w = 2 * np.pi * np.sort(gen.uniform(0.0, 5.0, n))
+    coef = torch.as_tensor(gen.uniform(-1, 1, (steps, magnus, k, members)), device="cuda").float()
+    y0 = gen.normal(size=(n, members)) + 1j * gen.normal(size=(n, members))
+    y0 = torch.as_tensor(y0 / np.linalg.norm(y0, axis=0), device="cuda")
+    return a[0], a[1:], w[None, :] - w[:, None], coef, y0
+
+
+def horner_problem(torch, n, members):
+    """Seeded Horner inputs on the card: transposed planes of norm ~1, norm-1 states."""
+    gen = np.random.default_rng(n)
+    scale = 0.7 / np.sqrt(n)
+    planes = [torch.as_tensor(scale * gen.normal(size=(members, n, n)), device="cuda").float()
+              for _ in range(2)]
+    v = gen.normal(size=(2, members, n))
+    v = v / np.sqrt((v**2).sum(axis=(0, 2), keepdims=True))
+    return planes + [torch.as_tensor(x, device="cuda").float() for x in v]
+
+
+def phase_large_dim_kernels(torch, msw, hp):
+    """Both kernels against their plain versions. Returns the two max diffs."""
+    members = 37  # a ragged batch
+    worst_member = 0.0
+    for magnus, dims in ((2, (8, 64, 96, 100, 128)), (3, (8, 64))):
+        for n in dims:
+            for hermitian in (False, True):
+                args = member_problem(torch, n, members, 5, magnus, hermitian)
+                kwargs = dict(dt=0.05, t0=0.2, hermitian=hermitian, magnus=magnus)
+                out = msw.sweep_expm_magnus2_member(*args, **kwargs)
+                plain = msw.sweep_expm_magnus2_member_plain(msw.prepare_inputs(*args, **kwargs))
+                torch.cuda.synchronize()
+                check(out.shape == (n, members), f"B3 n={n}: output shape {tuple(out.shape)}")
+                diff = float((out - plain).abs().max())
+                check(diff <= B3_TOL, f"B3 magnus={magnus} n={n} hermitian={hermitian}: kernel "
+                      f"vs plain {diff:.2e} > {B3_TOL}")
+                worst_member = max(worst_member, diff)
+                log(f"  B3 magnus {magnus} n={n:3d} hermitian {hermitian!s:5s} diff {diff:.2e}")
+    worst_horner = 0.0
+    cases = [(n, order, False) for n in (64, 96, 100, 256, 512) for order in (8, 12)]
+    for n, order, force_stream in cases + [(256, 8, True)]:
+        planes = horner_problem(torch, n, members)
+        if force_stream:
+            ur, ui = hp._launch_kernel(*planes, order, force_stream=True)
+        else:
+            ur, ui = hp.horner_apply_bm(*planes, order=order)
+        plain_r, plain_i = hp.horner_twin_bm(*planes, order=order)
+        torch.cuda.synchronize()
+        diff = float(torch.maximum((ur - plain_r).abs().max(), (ui - plain_i).abs().max()))
+        check(diff <= B3_TOL, f"B4 n={n} order={order}: kernel vs plain {diff:.2e} > {B3_TOL}")
+        worst_horner = max(worst_horner, diff)
+        log(f"  B4 n={n:3d} order {order:2d} {'streaming forced' if force_stream else ''} "
+            f"diff {diff:.2e}")
+    return worst_member, worst_horner
+
+
+# --------------------------------------------------------------------------
+# phase 9: the Lindblad dim-8 sweep through the member-sweep kernel
+# --------------------------------------------------------------------------
+def b3_bound(inputs):
+    """Bound of one member-sweep launch: per member and step the brackets
+    (8 n^3 per complex product), the Horner mat-vecs, the generator
+    combination and the Magnus assembly; the rotated tables once per step."""
+    n, k, T, B, magnus = inputs.n, inputs.k, inputs.steps, inputs.batch, inputs.magnus
+    products = (1 if inputs.hermitian else 2) * (1 if magnus == 2 else 3)
+    assembly = (8 if magnus == 2 else 40) * n * n
+    per_member_step = (products * 8 * n**3 + inputs.order * 8 * n * n
+                       + magnus * 4 * k * n * n + assembly)
+    flops = per_member_step * T * B + T * magnus * (k + 1) * 6 * n * n
+    nbytes = 4 * T * magnus * k * B + 16 * n * B + 8 * (k + 1) * n * n + 8 * n * n
+    return bound(flops, nbytes)
+
+
+def host_references(Signal, solver, rho0, carrier, amps, t_final):
+    """DOP853 (atol = rtol = 1e-12, float64 on the host) final density
+    matrices for ``amps``, and the seconds per member."""
+    start = time.perf_counter()
+    refs = [
+        solver.solve(t_span=[0.0, t_final], y0=rho0, method="DOP853", atol=1e-12, rtol=1e-12,
+                     signals=[Signal(float(a), carrier_freq=carrier)]).y[-1]
+        for a in amps
+    ]
+    return refs, (time.perf_counter() - start) / len(amps)
+
+
+def phase_lindblad8(torch, msw, Signal, solver, rho0, carrier, refs, ref_s, magnus, max_dt,
+                    limit):
+    from qiskit_dynamics_tpu_torch.ops.xla_sweep import sweep_expm_magnus2_xla
+
+    amps = torch.linspace(0.2, 1.0, L8_SWEEP, dtype=torch.float64, device="cuda")
+    dim = rho0.shape[0]
+
+    def signals_fn(amp):
+        return ([Signal(lambda t: amp, carrier_freq=carrier)], None)
+
+    def sweep():  # sweep_engine is left at "auto"
+        return solver.solve_sweep(signals_fn, amps, t_span=(0.0, L8_T), y0=rho0,
+                                  method="fused_magnus2", max_dt=max_dt, magnus_order=magnus)
+
+    sweep()
+    torch.cuda.synchronize()
+    msw.sweep_expm_magnus2_member.launches = 0
+    with Capture(msw) as cap:
+        out = sweep()
+        torch.cuda.synchronize()
+    launches = msw.sweep_expm_magnus2_member.launches
+    check(launches > 0, f"the dim-8 Magnus-{magnus} path did not launch the member_sweep kernel")
+    check(out.shape == (L8_SWEEP, dim, dim), f"dim-8 output shape {tuple(out.shape)}")
+    check(bool(torch.isfinite(out).all()), "non-finite dim-8 density matrices")
+    (inputs,) = cap.last
+    trace_dev = float((torch.diagonal(out, dim1=1, dim2=2).sum(-1) - 1.0).abs().max())
+    probes = [0, L8_SWEEP // 2, L8_SWEEP - 1]
+    err = max(float(np.max(np.abs(ref - out[i].cpu().numpy()))) for i, ref in zip(probes, refs))
+    check(err <= limit, f"dim-8 Magnus-{magnus} max error {err:.2e} > {limit} against "
+          f"DOP853(1e-12)")
+
+    per_call, block_s, reps = steady_time(torch, sweep)
+    kernel_ms = cuda_ms(torch, lambda: msw._launch_kernel(inputs), reps=2)
+    kernel_out = msw._launch_kernel(inputs)
+    plain_ms, plain_out = timed_ms(torch, lambda: msw.sweep_expm_magnus2_member_plain(inputs))
+    diff = float((kernel_out - plain_out).abs().max())
+    check(diff <= B3_TOL, f"dim-8 Magnus-{magnus} kernel vs plain {diff:.2e} > {B3_TOL}")
+    del plain_out
+
+    def eager():
+        with torch.no_grad():
+            return sweep_expm_magnus2_xla(
+                inputs.static, inputs.ops, inputs.omega, inputs.coef, inputs.y0, dt=inputs.dt,
+                t0=inputs.t0, order=inputs.order, hermitian=inputs.hermitian,
+                magnus_order=magnus)
+
+    eager_ms, _ = timed_ms(torch, eager)
+    bound_ms, bound_by = b3_bound(inputs)
+    print(
+        f"phase 9 Lindblad dim 8, Magnus-{magnus}: solve_dim {inputs.n}, {L8_SWEEP} members, "
+        f"{inputs.steps} steps (T={L8_T}, max_dt={max_dt}), sweep_engine auto -> member: "
+        f"{L8_SWEEP / per_call:.1f} sims/s ({reps} calls in {block_s:.2f} s, "
+        f"{per_call * 1e3:.1f} ms/call); kernel {kernel_ms:.1f} ms (bound {bound_ms:.1f} ms, "
+        f"{bound_by}), plain {plain_ms:.1f} ms, eager engine {eager_ms:.1f} ms (one call each, "
+        f"full shape); kernel vs plain {diff:.2e} (<= {B3_TOL}); max error {err:.2e} "
+        f"(<= {limit}, {len(probes)} probes vs DOP853 1e-12 at {ref_s:.2f} s/sim); "
+        f"max |trace - 1| {trace_dev:.2e}; launches {launches}",
+        flush=True,
+    )
+    return dict(launches=launches, max_abs_err=diff, ms=kernel_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, eager_ms=eager_ms,
+                sims_per_s=L8_SWEEP / per_call, max_err=err)
+
+
+# --------------------------------------------------------------------------
+# phase 10: the Lindblad dim-256 sweep through the polynomial engine
+# --------------------------------------------------------------------------
+def phase_lindblad256(torch, hp, Signal, lindblad_two_transmon_solver):
+    solver, rho0, carrier = lindblad_two_transmon_solver(device="cuda")
+    amps = torch.linspace(0.2, 1.0, L256_SWEEP, dtype=torch.float64, device="cuda")
+    dim = rho0.shape[0]
+
+    def signals_fn(amp):
+        return ([Signal(lambda t: amp, carrier_freq=carrier)], None)
+
+    def sweep(**engine):
+        return solver.solve_sweep(signals_fn, amps, t_span=(0.0, L256_T), y0=rho0,
+                                  method="fused_magnus2", max_dt=L256_MAX_DT, magnus_order=3,
+                                  **engine)
+
+    def poly():  # poly_horner is left at "auto"
+        return sweep(sweep_engine="poly")
+
+    poly()
+    torch.cuda.synchronize()
+    hp.horner_apply_bm.launches = 0
+    with Capture(hp) as cap:
+        out = poly()
+        torch.cuda.synchronize()
+    launches = hp.horner_apply_bm.launches
+    steps = math.ceil(L256_T / L256_MAX_DT)
+    check(launches == steps, f"the dim-256 path launched the horner_apply kernel {launches} "
+          f"times, not once per step ({steps})")
+    check(out.shape == (L256_SWEEP, dim, dim), f"dim-256 output shape {tuple(out.shape)}")
+    check(bool(torch.isfinite(out).all()), "non-finite dim-256 density matrices")
+    trace_dev = float((torch.diagonal(out, dim1=1, dim2=2).sum(-1) - 1.0).abs().max())
+
+    host, _, _ = lindblad_two_transmon_solver(device="cpu")
+    probes = [0, L256_SWEEP - 1]
+    refs, ref_s = host_references(Signal, host, rho0, carrier, amps[probes].tolist(), L256_T)
+    err = max(float(np.max(np.abs(ref - out[i].cpu().numpy()))) for i, ref in zip(probes, refs))
+    check(err <= L256_TOL, f"dim-256 max error {err:.2e} > {L256_TOL} against DOP853(1e-12)")
+
+    per_call, block_s, reps = steady_time(torch, poly)
+    MTr, MTi, vr, vi, order = cap.last
+    n = vr.shape[1]
+    kernel_ms = cuda_ms(torch, lambda: hp._launch_kernel(MTr, MTi, vr, vi, order), reps=5)
+    stream_ms = cuda_ms(
+        torch, lambda: hp._launch_kernel(MTr, MTi, vr, vi, order, force_stream=True), reps=5)
+    ur, ui = hp._launch_kernel(MTr, MTi, vr, vi, order)
+    hp.horner_twin_bm(MTr, MTi, vr, vi, order=order)  # warm-up
+    plain_ms, (plain_r, plain_i) = timed_ms(
+        torch, lambda: hp.horner_twin_bm(MTr, MTi, vr, vi, order=order))
+    diff = float(torch.maximum((ur - plain_r).abs().max(), (ui - plain_i).abs().max()))
+    check(diff <= B3_TOL, f"dim-256 horner kernel vs plain {diff:.2e} > {B3_TOL}")
+    del MTr, MTi, plain_r, plain_i, cap
+    bound_ms, bound_by = bound(order * 8 * n * n * L256_SWEEP,
+                               4 * (2 * L256_SWEEP * n * n + 4 * L256_SWEEP * n))
+
+    einsum_ms, out_e = timed_ms(torch, lambda: sweep(sweep_engine="poly", poly_horner="einsum"))
+    route_diff = float((out_e - out).abs().max())
+    check(route_diff <= 1e-5, f"dim-256 kernel route vs einsum route {route_diff:.2e} > 1e-5")
+    xla_ms, out_x = timed_ms(torch, lambda: sweep(sweep_engine="xla"))
+    err_x = max(float(np.max(np.abs(ref - out_x[i].cpu().numpy())))
+                for i, ref in zip(probes, refs))
+    print(
+        f"phase 10 Lindblad dim 256: solve_dim {n}, {L256_SWEEP} members, {steps} steps "
+        f"(T={L256_T}, max_dt={L256_MAX_DT}), Magnus-3, sweep_engine poly, poly_horner auto -> "
+        f"kernel: {L256_SWEEP / per_call:.1f} sims/s ({reps} calls in {block_s:.2f} s, "
+        f"{per_call * 1e3:.1f} ms/call); horner kernel {kernel_ms:.3f} ms per launch (bound "
+        f"{bound_ms:.3f} ms, {bound_by}; its streaming variant, not on this path, "
+        f"{stream_ms:.3f} ms), plain {plain_ms:.3f} ms; kernel vs plain {diff:.2e} "
+        f"(<= {B3_TOL}); einsum route {einsum_ms:.1f} ms/call "
+        f"({L256_SWEEP / einsum_ms * 1e3:.1f} sims/s, one call, vs kernel route {route_diff:.2e}); "
+        f"eager engine {xla_ms:.1f} ms/call ({L256_SWEEP / xla_ms * 1e3:.1f} sims/s, one call, "
+        f"max error {err_x:.2e}); max error {err:.2e} (<= {L256_TOL}, {len(probes)} probes vs "
+        f"DOP853 1e-12 at {ref_s:.2f} s/sim); max |trace - 1| {trace_dev:.2e}; launches "
+        f"{launches}",
+        flush=True,
+    )
+    return dict(launches=launches, max_abs_err=diff, ms=kernel_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, sims_per_s=L256_SWEEP / per_call,
+                einsum_call_ms=einsum_ms, eager_call_ms=xla_ms, max_err=err,
+                streaming_ms=stream_ms)
+
+
 def main() -> int:
     import torch
 
@@ -548,15 +823,21 @@ def main() -> int:
           flush=True)
 
     from qiskit_dynamics_tpu_torch import Signal, Solver
-    from qiskit_dynamics_tpu_torch.benchmarks import cr_solver
+    from qiskit_dynamics_tpu_torch.benchmarks import (
+        cr_solver,
+        lindblad_qudit_solver,
+        lindblad_two_transmon_solver,
+    )
     from qiskit_dynamics_tpu_torch.kernels import _build
     from qiskit_dynamics_tpu_torch.ops import adaptive_sweep as asw
+    from qiskit_dynamics_tpu_torch.ops import horner_pallas as hp
+    from qiskit_dynamics_tpu_torch.ops import member_sweep as msw
     from qiskit_dynamics_tpu_torch.ops import sweep_solver as ssw
     from qiskit_dynamics_tpu_torch.solvers.fused_sweep import _expand_lanes, sweep_arguments
 
-    # phase 2: build both kernels, one nvcc each, in parallel
+    # phase 2: build the four kernels, one nvcc each, in parallel
     start = time.perf_counter()
-    names = ("adaptive_sweep", "sweep_magnus2")
+    names = ("adaptive_sweep", "sweep_magnus2", "member_sweep", "horner_apply")
     with ThreadPoolExecutor(len(names)) as pool:
         for lib in pool.map(_build.load, names):
             check(lib is not None, "a kernel library did not load")
@@ -633,11 +914,8 @@ def main() -> int:
     inputs = asw.prepare_inputs(*args, **kwargs)
     kernel_ms = cuda_ms(torch, lambda: asw._launch_kernel(inputs, False), reps=3)
     kernel_out = asw._launch_kernel(inputs, False)[0]
-    torch.cuda.synchronize()
-    start = time.perf_counter()
-    twin_out = asw.sweep_dopri5_lockstep_plain(inputs)[0]
-    torch.cuda.synchronize()
-    twin_ms = (time.perf_counter() - start) * 1e3
+    twin_ms, twin = timed_ms(torch, lambda: asw.sweep_dopri5_lockstep_plain(inputs))
+    twin_out = twin[0]
     main_diff = float((kernel_out - twin_out).abs().max())
     check(main_diff <= 1e-5, f"main-path kernel vs twin diff {main_diff:.2e} > 1e-5")
     host_ms = per_call * 1e3 - kernel_ms
@@ -669,6 +947,30 @@ def main() -> int:
     grad = phase_grad(torch, ssw, Signal, cr_solver)
     lind = phase_lindblad(torch, ssw, Signal, Solver)
 
+    # phase 8: the member-sweep and Horner kernels against their plain versions
+    start = time.perf_counter()
+    b3_diff, b4_diff = phase_large_dim_kernels(torch, msw, hp)
+    print(f"phase 8 member_sweep and horner_apply vs plain: member sweep Magnus-2 x n in "
+          f"(8, 64, 96, 100, 128) and Magnus-3 x n in (8, 64), hermitian on and off (max diff "
+          f"{b3_diff:.2e}); horner n in (64, 96, 100, 256, 512) x orders (8, 12) and the "
+          f"streaming kernel at 256 (max diff "
+          f"{b4_diff:.2e}); all <= {B3_TOL} (float32 roundoff: the kernels sum in another "
+          f"order than torch.matmul) in {time.perf_counter() - start:.1f} s", flush=True)
+
+    # phase 9: Lindblad dim 8, both rows, one set of host references
+    l8_solver, l8_rho0, l8_carrier = lindblad_qudit_solver(device=cuda)
+    l8_host, _, _ = lindblad_qudit_solver(device="cpu")
+    l8_amps = np.linspace(0.2, 1.0, L8_SWEEP)[[0, L8_SWEEP // 2, L8_SWEEP - 1]]
+    l8_refs, l8_ref_s = host_references(Signal, l8_host, l8_rho0, l8_carrier, l8_amps, L8_T)
+    l8 = [
+        phase_lindblad8(torch, msw, Signal, l8_solver, l8_rho0, l8_carrier, l8_refs, l8_ref_s,
+                        magnus, max_dt, limit)
+        for magnus, max_dt, limit in L8_ROWS
+    ]
+
+    # phase 10: Lindblad dim 256 through the polynomial engine
+    l256 = phase_lindblad256(torch, hp, Signal, lindblad_two_transmon_solver)
+
     kernels = [{
         "name": "adaptive_sweep",
         "route": "cuda",
@@ -696,6 +998,31 @@ def main() -> int:
         "eager_engine_ms": grad["eager_ms"],
         "lindblad_config3": {key: lind[key] for key in (
             "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "eager_ms")},
+    }, {
+        "name": "member_sweep",
+        "route": "cuda",
+        "source": "qiskit_dynamics_tpu_torch/csrc/member_sweep.cu",
+        "replaces": "qiskit_dynamics_tpu/ops/member_sweep.py:65",
+        **{key: l8[0][key] for key in (
+            "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None,
+        "eager_engine_ms": l8[0]["eager_ms"],
+        "sims_per_s": l8[0]["sims_per_s"],
+        "lindblad_dim8_magnus2": {key: l8[1][key] for key in (
+            "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "eager_ms",
+            "sims_per_s")},
+    }, {
+        "name": "horner_apply",
+        "route": "cuda",
+        "source": "qiskit_dynamics_tpu_torch/csrc/horner_apply.cu",
+        "replaces": "qiskit_dynamics_tpu/ops/horner_pallas.py:78",
+        **{key: l256[key] for key in (
+            "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None,
+        "sims_per_s": l256["sims_per_s"],
+        "streaming_variant_ms": l256["streaming_ms"],
+        "einsum_route_call_ms": l256["einsum_call_ms"],
+        "eager_engine_call_ms": l256["eager_call_ms"],
     }]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -3,8 +3,11 @@
 ``cr_solver`` is the headline model: a two-transmon cross-resonance
 ``Solver`` (dim 16 at the default 4 levels per transmon) with a rotating
 frame equal to diag(H0) and the RWA at the mean transmon frequency, the
-model of the 10,000-point amplitude sweep. The JAX package's other benchmark
-models are still to be ported (``ROADMAP.md``).
+model of the 10,000-point amplitude sweep. ``lindblad_qudit_solver`` and
+``lindblad_two_transmon_solver`` are the two large-dimension vectorized
+Lindblad models the JAX package benchmarks inline (``bench.py``, the dim-8 and
+dim-256 rows). The JAX package's other benchmark models are still to be
+ported (``ROADMAP.md``).
 """
 from __future__ import annotations
 
@@ -15,7 +18,7 @@ import torch
 
 from .solvers import Solver
 
-__all__ = ["cr_solver"]
+__all__ = ["cr_solver", "lindblad_qudit_solver", "lindblad_two_transmon_solver"]
 
 
 def _transmon_ops(dim: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -77,3 +80,63 @@ def cr_solver(
         dtype=dtype,
     )
     return solver, w1
+
+
+def lindblad_qudit_solver(dim: int = 8, device=None, dtype: torch.dtype = torch.complex128):
+    """A driven ``dim``-level transmon with amplitude damping, vectorized
+    (``solve_dim = dim**2``; 64 at the default): ``H0 = 2 pi (5 N - 0.165
+    (N^2 - N))``, drive ``2 pi 0.02 (a + a^dag)``, static dissipator
+    ``sqrt(0.01) a``, rotating frame ``diag(H0)``.
+
+    Returns:
+        (solver, rho0, carrier): the ``Solver``, the initial density matrix
+        ``|1><1|`` and the drive carrier frequency (5.0).
+    """
+    a, adag, N = _transmon_ops(dim)
+    H0 = 2 * np.pi * (5.0 * N - 0.33 / 2 * (N @ N - N))
+    solver = Solver(
+        static_hamiltonian=H0,
+        hamiltonian_operators=[2 * np.pi * 0.02 * (a + adag)],
+        static_dissipators=[np.sqrt(0.01) * a],
+        rotating_frame=np.diag(H0),
+        vectorized=True,
+        device=device,
+        dtype=dtype,
+    )
+    rho0 = np.zeros((dim, dim), dtype=complex)
+    rho0[1, 1] = 1.0
+    return solver, rho0, 5.0
+
+
+def lindblad_two_transmon_solver(device=None, dtype: torch.dtype = torch.complex128):
+    """Two coupled 4-level transmons (5.0 and 5.1 GHz, anharmonicity -0.33,
+    coupling 0.002) with amplitude damping on both, vectorized (``solve_dim``
+    256): drive ``2 pi 0.02 (a + a^dag) x I``, static dissipators
+    ``sqrt(0.005) a x I`` and ``sqrt(0.005) I x a``, rotating frame
+    ``diag(H0)``.
+
+    Returns:
+        (solver, rho0, carrier): the ``Solver``, the initial density matrix
+        ``|1><1|`` and the drive carrier frequency (5.1).
+    """
+    a, adag, N = _transmon_ops(4)
+    ident = np.eye(4)
+    H0 = (
+        2 * np.pi * 5.0 * np.kron(N, ident)
+        + np.pi * (-0.33) * np.kron(N @ (N - ident), ident)
+        + 2 * np.pi * 5.1 * np.kron(ident, N)
+        + np.pi * (-0.33) * np.kron(ident, N @ (N - ident))
+        + 2 * np.pi * 0.002 * (np.kron(adag, a) + np.kron(a, adag))
+    )
+    solver = Solver(
+        static_hamiltonian=H0,
+        hamiltonian_operators=[2 * np.pi * 0.02 * np.kron(a + adag, ident)],
+        static_dissipators=[np.sqrt(0.005) * np.kron(a, ident), np.sqrt(0.005) * np.kron(ident, a)],
+        rotating_frame=np.diag(H0),
+        vectorized=True,
+        device=device,
+        dtype=dtype,
+    )
+    rho0 = np.zeros((16, 16), dtype=complex)
+    rho0[1, 1] = 1.0
+    return solver, rho0, 5.1

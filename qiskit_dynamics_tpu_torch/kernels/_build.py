@@ -25,12 +25,19 @@ __all__ = ["load", "BUILD_DIR", "SOURCE_DIR"]
 SOURCE_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "torch_kernels"
 
-# -fmad=false: no multiply-add contraction, so each kernel performs the same
-# rounded operations as its eager twin (the chip check compares them closely)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# Kernels built without multiply-add contraction: each performs the same
+# rounded operations as its plain version, and the chip check holds the two
+# together bit for bit. The others fuse multiply-adds and agree with their
+# plain versions to float32 roundoff.
+NO_FMAD = frozenset({"adaptive_sweep", "sweep_magnus2"})
+
+
+def _flags(name: str):
+    return NVCC_FLAGS + (("-fmad=false",) if name in NO_FMAD else ())
 
 
 def _nvcc() -> str:
@@ -52,13 +59,14 @@ def load(name: str) -> ctypes.CDLL:
     memory, spills) is kept beside the library as ``<library>.ptxas.txt``.
     """
     src = SOURCE_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    flags = _flags(name)
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
     lib_path = BUILD_DIR / f"lib{name}_{digest}.so"
     if not lib_path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
         proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            [_nvcc(), *flags, "-o", str(tmp), str(src)],
             capture_output=True, text=True,
         )
         if proc.returncode != 0:

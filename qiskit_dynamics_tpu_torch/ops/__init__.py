@@ -1,10 +1,14 @@
 """Compute kernels of the port and their plain versions: the lockstep-adaptive
-dopri5 sweep (B1), the fixed-step Magnus-2 sweep (B2), the eager engine and
-the differentiable wrapper of the fixed-step sweep."""
+dopri5 sweep (B1), the fixed-step Magnus-2 sweep (B2), the member-major
+Magnus-2/3 sweep (B3), the Horner expm action (B4), the eager and polynomial
+engines and the differentiable wrappers of the fixed-step sweeps."""
 from .adaptive_sweep import sweep_dopri5_lockstep, sweep_dopri5_lockstep_plain
 from .sweep_solver import sweep_expm_magnus2, sweep_expm_magnus2_plain
 from .xla_sweep import sweep_expm_magnus2_xla
-from .sweep_ad import sweep_expm_magnus2_ad
+from .member_sweep import sweep_expm_magnus2_member, sweep_expm_magnus2_member_plain
+from .horner_pallas import horner_apply_bm, horner_apply_bm_ad, horner_twin_bm
+from .polynomial_sweep import expand_magnus_polynomial, sweep_expm_magnus_poly
+from .sweep_ad import sweep_expm_magnus2_ad, sweep_expm_magnus2_member_ad
 
 __all__ = [
     "sweep_dopri5_lockstep",
@@ -12,5 +16,13 @@ __all__ = [
     "sweep_expm_magnus2",
     "sweep_expm_magnus2_plain",
     "sweep_expm_magnus2_xla",
+    "sweep_expm_magnus2_member",
+    "sweep_expm_magnus2_member_plain",
+    "horner_apply_bm",
+    "horner_apply_bm_ad",
+    "horner_twin_bm",
+    "expand_magnus_polynomial",
+    "sweep_expm_magnus_poly",
     "sweep_expm_magnus2_ad",
+    "sweep_expm_magnus2_member_ad",
 ]

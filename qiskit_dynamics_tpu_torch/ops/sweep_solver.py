@@ -45,6 +45,15 @@ _GAUSS3_D3 = 0.5 + np.sqrt(15) / 10
 _M3_C0 = np.sqrt(15) / 3
 _M3_C1 = 10.0 / 3
 
+
+
+def gauss_nodes(magnus_order: int):
+    """The Gauss-Legendre nodes in (0, 1) of the Magnus rule of this order."""
+    if magnus_order == 2:
+        return (_GAUSS_C1, _GAUSS_C2)
+    return (_GAUSS3_D1, _GAUSS3_D2, _GAUSS3_D3)
+
+
 MAX_N = 32  # the kernel's cap on the state dimension
 MAX_SHARED_BYTES = 232448  # dynamic shared memory a block may use on Hopper
 _MODES = ("matrix", "matrix_herm", "matvec")

@@ -8,17 +8,22 @@ kernel lanes, run the kernel (CUDA for a model on a CUDA device, the plain
 version for a model on the CPU) and rotate the results back to the standard
 basis.
 
-- ``fused_sweep_solve``: fixed-step Magnus-2 through kernel B2
-  (:mod:`~qiskit_dynamics_tpu_torch.ops.sweep_solver`), or the batch-major
-  eager engine (:mod:`~qiskit_dynamics_tpu_torch.ops.xla_sweep`);
-  differentiable (kernel forward, eager-engine backward); Hamiltonian and
-  vectorized Lindblad models.
+- ``fused_sweep_solve``: fixed-step Magnus-2 or Magnus-3 on one of four
+  engines: kernel B2 (:mod:`~qiskit_dynamics_tpu_torch.ops.sweep_solver`,
+  ``solve_dim <= 32``), the member-major kernel B3
+  (:mod:`~qiskit_dynamics_tpu_torch.ops.member_sweep`, up to 128), the
+  polynomial engine with the Horner kernel B4
+  (:mod:`~qiskit_dynamics_tpu_torch.ops.polynomial_sweep`, above 128), or the
+  batch-major eager engine (:mod:`~qiskit_dynamics_tpu_torch.ops.xla_sweep`);
+  differentiable (kernel forward, eager backward); Hamiltonian and vectorized
+  Lindblad models.
 - ``fused_adaptive_sweep_solve``: lockstep-adaptive dopri5 through kernel B1
   (:mod:`~qiskit_dynamics_tpu_torch.ops.adaptive_sweep`), Hamiltonian models.
 
-Not yet ported (``ROADMAP.md``): ``precision="df32"`` (A10), the member and
-polynomial engines (A8), the gradient of the adaptive solve (A5), ``mesh=``
-(A13), and the adaptive solve on Lindblad models.
+Not yet ported (``ROADMAP.md``): ``precision="df32"`` (A10), the gradient of
+the adaptive solve (A5), ``mesh=`` (A13), and the adaptive solve on Lindblad
+models. Not carried: the member engine's Mosaic layout keywords
+``member_horner`` and ``member_build`` (one kernel computes that polynomial).
 """
 from __future__ import annotations
 
@@ -31,13 +36,7 @@ import torch
 from ..exceptions import DynamicsError
 from ..models import GeneratorModel, LindbladModel
 from ..models.operator_collections import OperatorCollection, VectorizedLindbladCollection
-from ..ops.sweep_solver import (
-    _GAUSS3_D1,
-    _GAUSS3_D2,
-    _GAUSS3_D3,
-    _GAUSS_C1,
-    _GAUSS_C2,
-)
+from ..ops.sweep_solver import gauss_nodes
 from ..signals import SignalList
 from ..unified import is_tensor, to_numpy, to_tensor
 from .fixed_step_solvers import get_fixed_step_sizes
@@ -123,12 +122,6 @@ def _leaves(tree):
         yield tree
 
 
-def _gauss_nodes(magnus_order: int) -> np.ndarray:
-    if magnus_order == 2:
-        return np.array([_GAUSS_C1, _GAUSS_C2])
-    return np.array([_GAUSS3_D1, _GAUSS3_D2, _GAUSS3_D3])
-
-
 def fused_sweep_solve(
     model,
     signals_fn: Callable,
@@ -143,6 +136,7 @@ def fused_sweep_solve(
     magnus_mode: str = "auto",
     sweep_engine: str = "auto",
     magnus_order: int = 2,
+    poly_horner: str = "auto",
     t_eval=None,
     mesh=None,
 ):
@@ -172,14 +166,27 @@ def fused_sweep_solve(
         rwa_signal_map: maps ``signals_fn``'s output to the model's signals
             (``Solver.solve_sweep`` wires the solver's map).
         precision: ``"f32"``; ``"df32"`` waits for ROADMAP A10.
-        magnus_mode: the kernel's Magnus-2 evaluation (``"auto"``,
-            ``"matrix"``, ``"matrix_herm"``, ``"matvec"``).
-        sweep_engine: ``"pallas"`` (the name is kept: the fixed-step sweep
-            kernel B2, CUDA on the card, its plain version on the CPU),
-            ``"xla"`` (the batch-major eager engine), or ``"auto"``: the
-            kernel at ``solve_dim <= 32``. ``"member"``, ``"poly"`` and
-            ``"auto"`` above 32 wait for ROADMAP A8.
-        magnus_order: 2, or 3 on the ``"xla"`` engine.
+        magnus_mode: kernel B2's Magnus-2 evaluation (``"auto"``,
+            ``"matrix"``, ``"matrix_herm"``, ``"matvec"``); ignored, with a
+            warning, on the other engines (as is ``tile_b``).
+        sweep_engine: every engine runs its CUDA kernel for a model on the
+            card and the kernel's plain version for a model on the CPU.
+            ``"pallas"`` (the name is kept): the fixed-step sweep kernel B2,
+            ``solve_dim <= 32``, Magnus-2. ``"member"``: the member-major
+            kernel B3, ``solve_dim <= 128`` (``<= 64`` for Magnus-3), vector
+            states without ``t_eval``. ``"poly"``: the polynomial-expanded
+            engine, whose ``expm`` action is kernel B4. ``"xla"``: the
+            batch-major eager engine. ``"auto"`` (default): Magnus-2 takes
+            B2 up to 32, the member engine up to 128 (vector states without
+            ``t_eval``, else the eager engine) and the polynomial engine
+            above; Magnus-3 takes the member engine up to 64 (same
+            condition, else the eager engine up to 128) and the polynomial
+            engine above 128.
+        magnus_order: 2 (2-point Gauss, 4th order) or 3 (3-point Gauss, 6th
+            order; not on ``"pallas"``).
+        poly_horner: the polynomial engine's ``expm``-action route:
+            ``"pallas"`` (kernel B4), ``"einsum"`` (eager loop) or ``"auto"``
+            (the kernel for single-column states at ``solve_dim >= 64``).
         t_eval: optional strictly increasing times on the step grid
             ``t0 + j dt``; switches the return to trajectories.
         mesh: multi-device sharding; waits for ROADMAP A13 (raises).
@@ -208,32 +215,6 @@ def fused_sweep_solve(
     _, h_list, n_steps_list = get_fixed_step_sizes((t0, tf), None, max_dt)
     n_steps, dt = int(n_steps_list[0]), float(h_list[0])
 
-    if sweep_engine in ("member", "poly"):
-        raise NotImplementedError(
-            f"sweep_engine={sweep_engine!r} waits for ROADMAP A8 (large-dim engines); "
-            "use 'pallas' or 'xla'."
-        )
-    if sweep_engine == "auto":
-        if magnus_order == 3:
-            raise NotImplementedError(
-                "sweep_engine='auto' with magnus_order=3 picks the member or polynomial "
-                "engines, which wait for ROADMAP A8; pass sweep_engine='xla'."
-            )
-        if solve_dim > 32:
-            raise NotImplementedError(
-                f"sweep_engine='auto' at solve_dim={solve_dim} > 32 picks the member or "
-                "polynomial engines, which wait for ROADMAP A8; pass sweep_engine='xla'."
-            )
-        sweep_engine = "pallas"
-    if sweep_engine not in ("pallas", "xla"):
-        raise DynamicsError(
-            f"unknown sweep_engine {sweep_engine!r}; use 'pallas', 'xla' or 'auto'."
-        )
-    if sweep_engine == "pallas" and magnus_order == 3:
-        raise DynamicsError(
-            "magnus_order=3 is not implemented in the fixed-step kernel; use sweep_engine='xla'."
-        )
-
     k = ops_fb.shape[0]
 
     def signals_as_list(p) -> SignalList:
@@ -261,10 +242,14 @@ def fused_sweep_solve(
     else:
         y0_fb = frame.state_into_frame_basis(y0)
     eval_slots, include_t0 = _fixed_eval_slots(t_eval, t0, tf, dt, n_steps)
+    sweep_engine = _select_engine(
+        sweep_engine, magnus_order, solve_dim,
+        member_ok=t_eval is None and y0_fb.ndim == 1,
+    )
 
     # Gauss-time signal samples for the whole batch, float64 at absolute times
     gauss_times = torch.as_tensor(
-        t0 + dt * (np.arange(n_steps)[:, None] + _gauss_nodes(magnus_order)[None, :]),
+        t0 + dt * (np.arange(n_steps)[:, None] + np.array(gauss_nodes(magnus_order))[None, :]),
         device=device,
     )
     params = _tree_map(lambda x: to_tensor(x, device=device), params)
@@ -274,23 +259,58 @@ def fused_sweep_solve(
     hermitian = _all_anti_hermitian(model)
 
     traj = None
-    if sweep_engine == "xla":
-        from ..ops.xla_sweep import sweep_expm_magnus2_xla
-
+    if sweep_engine != "pallas" and (magnus_mode != "auto" or tile_b is not None):
+        warnings.warn(
+            f"fused_sweep_solve routed to the {sweep_engine} engine (solve_dim={solve_dim} or "
+            f"sweep_engine={sweep_engine!r}); the options magnus_mode and tile_b of the "
+            "fixed-step kernel are ignored on this path.",
+            stacklevel=2,
+        )
+    if sweep_engine in ("xla", "poly"):
+        # batch-major (B, n, m): each member's generators are built once and
+        # applied to all m state columns
         B = coeffs.shape[-1]
         y0_mat = y0_fb.reshape(solve_dim, -1)
         m = y0_mat.shape[1]
-        out = sweep_expm_magnus2_xla(
-            static_fb, ops_fb, omega, coeffs, y0_mat[None].expand(B, solve_dim, m), dt=dt,
-            t0=t0, order=expm_order, hermitian=hermitian, eval_slots=eval_slots,
-            magnus_order=magnus_order,
-        )
+        y0_bm = y0_mat[None].expand(B, solve_dim, m)
+        if sweep_engine == "poly":
+            from ..ops.polynomial_sweep import sweep_expm_magnus_poly
+
+            # the frame diagonal (gauge d_0 = 0) from the omega difference
+            # matrix: constant shifts of d cancel in every diagonal sandwich
+            out = sweep_expm_magnus_poly(
+                static_fb, ops_fb, 1j * omega[:, 0], coeffs, y0_bm, dt=dt, t0=t0,
+                order=expm_order, eval_slots=eval_slots, magnus_order=magnus_order,
+                horner=poly_horner,
+            )
+        else:
+            from ..ops.xla_sweep import sweep_expm_magnus2_xla
+
+            out = sweep_expm_magnus2_xla(
+                static_fb, ops_fb, omega, coeffs, y0_bm, dt=dt, t0=t0, order=expm_order,
+                hermitian=hermitian, eval_slots=eval_slots, magnus_order=magnus_order,
+            )
         out_final, traj_bm = out if eval_slots is not None else (out, None)
         # back to the member-major lane layout of the collectors
         yf = out_final.permute(1, 0, 2).reshape(solve_dim, B * m)
         if traj_bm is not None:
             traj = traj_bm.permute(0, 2, 1, 3).reshape(-1, solve_dim, B * m)
         y0_cols = y0_mat.repeat(1, B) if m > 1 else y0_mat.expand(solve_dim, B)
+    elif sweep_engine == "member":
+        from ..ops.member_sweep import sweep_expm_magnus2_member
+        from ..ops.sweep_ad import sweep_expm_magnus2_member_ad
+
+        B, m = coeffs.shape[-1], 1
+        y0_cols = y0_fb[:, None].expand(solve_dim, B)
+        args = (static_fb, ops_fb, omega, coeffs, y0_cols)
+        if torch.is_grad_enabled() and any(x.requires_grad for x in args):
+            yf = sweep_expm_magnus2_member_ad(
+                *args, dt, t0, expm_order, hermitian, magnus_order
+            )
+        else:
+            yf = sweep_expm_magnus2_member(
+                *args, dt=dt, t0=t0, order=expm_order, hermitian=hermitian, magnus=magnus_order
+            )
     else:
         from ..ops.sweep_ad import sweep_expm_magnus2_ad
         from ..ops.sweep_solver import sweep_expm_magnus2
@@ -319,6 +339,49 @@ def fused_sweep_solve(
         rho = yf[:, :B].reshape(n, n, B).permute(2, 1, 0)  # (B, n, n)
         return frame.operator_out_of_frame_basis(rho)
     return _collect_lanes(model, yf, B, m)
+
+
+def _select_engine(sweep_engine: str, magnus_order: int, solve_dim: int, member_ok: bool) -> str:
+    """Resolve ``sweep_engine="auto"`` and validate the choice. ``member_ok``:
+    a vector initial state without ``t_eval``, which the member kernel needs."""
+    if magnus_order == 3:
+        # 6th-order rule: the member kernel (n <= 64), the eager engine, or,
+        # above solve_dim 128, the polynomial engine. At small dims with many
+        # steps the polynomial engine's float32 monomial contraction rounds
+        # worse than the generator build, so member/eager keep those.
+        if sweep_engine == "auto":
+            if solve_dim > 128:
+                sweep_engine = "poly"
+            else:
+                sweep_engine = "member" if (solve_dim <= 64 and member_ok) else "xla"
+        if sweep_engine == "pallas":
+            raise DynamicsError(
+                "magnus_order=3 is not implemented in the batch-on-lanes kernel; use "
+                "sweep_engine='member', 'xla' or 'auto'."
+            )
+        if sweep_engine == "member" and solve_dim > 64:
+            raise DynamicsError(
+                "magnus_order=3 on the member engine needs solve_dim <= 64; use "
+                "sweep_engine='xla'."
+            )
+    if sweep_engine == "auto":
+        if solve_dim > 128:
+            sweep_engine = "poly"
+        elif solve_dim <= 32:
+            sweep_engine = "pallas"
+        else:
+            sweep_engine = "member" if member_ok else "xla"
+    if sweep_engine not in ("pallas", "xla", "member", "poly"):
+        raise DynamicsError(
+            f"unknown sweep_engine {sweep_engine!r}; use 'pallas', 'xla', 'member', 'poly' or "
+            "'auto'."
+        )
+    if sweep_engine == "member" and not member_ok:
+        raise DynamicsError(
+            "sweep_engine='member' supports vector initial states without t_eval "
+            "trajectories; use sweep_engine='xla' for those."
+        )
+    return sweep_engine
 
 
 def _fixed_eval_slots(t_eval, t0: float, tf: float, dt: float, n_steps: int):

@@ -142,9 +142,13 @@ class Solver:
         lockstep-adaptive kernel
         (:func:`~qiskit_dynamics_tpu_torch.solvers.fused_sweep.fused_adaptive_sweep_solve`);
         ``method="fused_magnus2"`` (alias ``"fused_expm"``) is the
-        fixed-step kernel, which needs ``max_dt`` and is differentiable in
+        fixed-step sweep, which needs ``max_dt`` and is differentiable in
         ``params``
-        (:func:`~qiskit_dynamics_tpu_torch.solvers.fused_sweep.fused_sweep_solve`).
+        (:func:`~qiskit_dynamics_tpu_torch.solvers.fused_sweep.fused_sweep_solve`;
+        its keywords ``sweep_engine``, ``magnus_order`` and ``poly_horner``
+        choose among the fixed-step kernel, the member-major kernel, the
+        polynomial engine and the eager engine, by ``solve_dim`` when left
+        at ``"auto"``).
         The JAX package's ``chebyshev`` method waits for ROADMAP A10.
         ``kwargs`` go to the chosen solver.
 

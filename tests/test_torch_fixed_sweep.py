@@ -279,13 +279,16 @@ def test_t_eval_validation(cr_pair, t_eval, message):
     "kwargs, error, message",
     [({"precision": "df32"}, NotImplementedError, "A10"),
      ({"mesh": object()}, NotImplementedError, "A13"),
-     ({"sweep_engine": "member"}, NotImplementedError, "A8"),
-     ({"sweep_engine": "poly"}, NotImplementedError, "A8"),
-     ({"magnus_order": 3}, NotImplementedError, "A8"),
+     ({"precision": "f16"}, DynamicsError, "unknown precision"),
+     ({"sweep_engine": "member", "t_eval": [0.5, 1.0]}, DynamicsError, "vector initial states"),
+     ({"magnus_order": 4}, DynamicsError, "magnus_order must be 2 or 3"),
      ({"sweep_engine": "pallas", "magnus_order": 3}, DynamicsError, "magnus_order=3"),
      ({"sweep_engine": "bogus"}, DynamicsError, "unknown sweep_engine")],
 )
 def test_unported_options_raise(cr_pair, kwargs, error, message):
+    """Options still to be ported raise with their ROADMAP item; the member
+    and polynomial engines are ported and raise only for what the JAX package
+    rejects too."""
     (_, w1), (tsolver, _) = cr_pair
     with pytest.raises(error, match=message):
         fused_sweep_solve(
@@ -296,13 +299,24 @@ def test_unported_options_raise(cr_pair, kwargs, error, message):
 
 
 def test_auto_engine_above_32_raises():
+    """Above solve_dim 32 ``sweep_engine="auto"`` no longer raises: it runs the
+    member engine (agreeing with the eager engine). What still raises there is
+    what the JAX package rejects: Magnus-3 on the member engine above 64."""
     gen = rng(103)
     model = port.models.HamiltonianModel(
         random_hermitian(gen, 33), [random_hermitian(gen, 33)], device="cpu"
     )
-    with pytest.raises(NotImplementedError, match="A8"):
-        fused_sweep_solve(model, lambda a: [Signal(a)], torch.tensor([0.1]), (0.0, 1.0), 0.5,
-                          np.eye(33, dtype=complex)[0])
+    args = (model, lambda a: [Signal(a)], torch.tensor([0.1]), (0.0, 1.0), 0.5,
+            np.eye(33, dtype=complex)[0])
+    out = fused_sweep_solve(*args)
+    np.testing.assert_allclose(to_np(out), to_np(fused_sweep_solve(*args, sweep_engine="xla")),
+                               rtol=0, atol=2e-5)
+    big = port.models.HamiltonianModel(
+        random_hermitian(gen, 65), [random_hermitian(gen, 65)], device="cpu"
+    )
+    with pytest.raises(DynamicsError, match="solve_dim <= 64"):
+        fused_sweep_solve(big, lambda a: [Signal(a)], torch.tensor([0.1]), (0.0, 1.0), 0.5,
+                          np.eye(65, dtype=complex)[0], sweep_engine="member", magnus_order=3)
 
 
 @pytest.mark.parametrize(

@@ -1,0 +1,135 @@
+"""The CUDA member-sweep and Horner kernels against their plain versions, on the card.
+
+These tests need an NVIDIA GPU with nvcc; without one they skip. On the card
+run them with ``python -m pytest tests/test_torch_large_dim_cuda.py -m cuda
+--noconftest``. Both kernels fuse multiply-adds and sum their products in
+their own order, so they agree with the plain versions (``torch.matmul``) to
+float32 roundoff, not bit for bit: states stay within 1e-5 on norm-1 states
+(measured a few 1e-7). This file imports nothing of JAX.
+"""
+import numpy as np
+import pytest
+import torch
+
+from qiskit_dynamics_tpu_torch.ops import horner_pallas as hp
+from qiskit_dynamics_tpu_torch.ops import member_sweep as msw
+
+pytestmark = pytest.mark.cuda
+
+TOL = 1e-5
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def member_problem(n: int, members: int, steps: int, magnus: int, hermitian: bool, device,
+                   k: int = 2):
+    """Seeded inputs of norm-1 states; generators of spectral radius ~3, so a
+    step of 0.05 moves the state by ~0.15."""
+    gen = np.random.default_rng(1000 * magnus + n)
+    a = gen.normal(size=(k + 1, n, n)) + 1j * gen.normal(size=(k + 1, n, n))
+    if hermitian:
+        a = -1j * (a + np.conj(np.transpose(a, (0, 2, 1)))) / 2
+    a = a * (1.5 / np.sqrt(n))
+    w = 2 * np.pi * np.sort(gen.uniform(0.0, 5.0, n))
+    coef = torch.as_tensor(gen.uniform(-1, 1, (steps, magnus, k, members)), device=device).float()
+    y0 = gen.normal(size=(n, members)) + 1j * gen.normal(size=(n, members))
+    y0 = torch.as_tensor(y0 / np.linalg.norm(y0, axis=0), device=device)
+    return a[0], a[1:], w[None, :] - w[:, None], coef, y0
+
+
+def horner_problem(n: int, members: int, device):
+    gen = np.random.default_rng(n)
+    scale = 0.7 / np.sqrt(n)
+    planes = [torch.as_tensor(scale * gen.normal(size=(members, n, n)), device=device).float()
+              for _ in range(2)]
+    v = gen.normal(size=(2, members, n))
+    v = v / np.sqrt((v**2).sum(axis=(0, 2), keepdims=True))
+    return planes + [torch.as_tensor(x, device=device).float() for x in v]
+
+
+@pytest.mark.parametrize("hermitian", [False, True])
+@pytest.mark.parametrize(
+    "magnus, n", [(2, 8), (2, 64), (2, 96), (2, 100), (2, 128), (3, 8), (3, 33), (3, 64)]
+)
+def test_member_kernel_matches_plain(cuda, magnus, n, hermitian):
+    args = member_problem(n, 37, 5, magnus, hermitian, cuda)  # 37 members: a ragged batch
+    kwargs = dict(dt=0.05, t0=0.2, hermitian=hermitian, magnus=magnus)
+    before = msw.sweep_expm_magnus2_member.launches
+    out = msw.sweep_expm_magnus2_member(*args, **kwargs)
+    plain = msw.sweep_expm_magnus2_member_plain(msw.prepare_inputs(*args, **kwargs))
+    torch.cuda.synchronize()
+    assert msw.sweep_expm_magnus2_member.launches == before + 1
+    assert out.shape == plain.shape == (n, 37)
+    assert float((out - plain).abs().max()) <= TOL
+
+
+def test_member_kernel_no_operators_and_many(cuda):
+    """k = 0 (static generator only) and k = 3."""
+    for k in (0, 3):
+        args = member_problem(16, 9, 4, 2, False, cuda, k=k)
+        out = msw.sweep_expm_magnus2_member(*args, dt=0.05)
+        plain = msw.sweep_expm_magnus2_member_plain(msw.prepare_inputs(*args, dt=0.05))
+        torch.cuda.synchronize()
+        assert float((out - plain).abs().max()) <= TOL
+
+
+def test_member_kernel_rejects(cuda):
+    static, ops, omega, coef, y0 = member_problem(8, 4, 2, 2, False, cuda)
+    with pytest.raises(TypeError, match="A10"):
+        msw.sweep_expm_magnus2_member(static, ops, omega, coef.double(), y0, dt=0.1)
+    with pytest.raises(ValueError, match="Gauss-point"):
+        msw.sweep_expm_magnus2_member(static, ops, omega, coef, y0, dt=0.1, magnus=3)
+    args = member_problem(msw.MAX_N + 1, 2, 1, 2, False, cuda)
+    with pytest.raises(ValueError, match="n <= 128"):
+        msw.sweep_expm_magnus2_member(*args, dt=0.1)
+    args = member_problem(msw.MAX_N_MAGNUS3 + 1, 2, 1, 3, False, cuda)
+    with pytest.raises(ValueError, match="n <= 64"):
+        msw.sweep_expm_magnus2_member(*args, dt=0.1, magnus=3)
+
+
+@pytest.mark.parametrize("order", [8, 12])
+@pytest.mark.parametrize("n", [8, 33, 64, 96, 100, 256, 320, 512])
+def test_horner_kernel_matches_plain(cuda, n, order):
+    """n <= 320 run the cluster-resident kernel (1, 2, 4 or 8 blocks per
+    member; 33 is the unaligned, scalar-load case), 512 the streaming one."""
+    planes = horner_problem(n, 37, cuda)
+    before = hp.horner_apply_bm.launches
+    ur, ui = hp.horner_apply_bm(*planes, order=order)
+    plain_r, plain_i = hp.horner_twin_bm(*planes, order=order)
+    torch.cuda.synchronize()
+    assert hp.horner_apply_bm.launches == before + 1
+    assert ur.shape == ui.shape == (37, n)
+    assert float(torch.maximum((ur - plain_r).abs().max(), (ui - plain_i).abs().max())) <= TOL
+
+
+@pytest.mark.parametrize("n", [64, 100, 256])
+def test_horner_streaming_kernel_matches_plain(cuda, n):
+    planes = horner_problem(n, 37, cuda)
+    ur, ui = hp._launch_kernel(*planes, 8, force_stream=True)
+    plain_r, plain_i = hp.horner_twin_bm(*planes, order=8)
+    torch.cuda.synchronize()
+    assert float(torch.maximum((ur - plain_r).abs().max(), (ui - plain_i).abs().max())) <= TOL
+
+
+def test_horner_gradient_uses_plain_backward(cuda):
+    planes = [x.requires_grad_(True) for x in horner_problem(64, 5, cuda)]
+    ur, ui = hp.horner_apply_bm_ad(*planes, order=8)
+    (ur.sum() + 2.0 * ui.sum()).backward()
+    twins = [x.detach().clone().requires_grad_(True) for x in planes]
+    plain_r, plain_i = hp.horner_twin_bm(*twins, order=8)
+    (plain_r.sum() + 2.0 * plain_i.sum()).backward()
+    for got, want in zip(planes, twins):
+        assert torch.equal(got.grad, want.grad)  # the same backward on the same inputs
+
+
+def test_horner_kernel_rejects(cuda):
+    planes = horner_problem(8, 3, cuda)
+    with pytest.raises(TypeError, match="A10"):
+        hp.horner_apply_bm(*[x.double() for x in planes])
+    with pytest.raises(ValueError, match="shape mismatch"):
+        hp.horner_apply_bm(planes[0], planes[1], planes[2], planes[3][:, :4])

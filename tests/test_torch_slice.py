@@ -146,7 +146,9 @@ def test_import_does_not_load_jax():
         "import sys, qiskit_dynamics_tpu_torch, qiskit_dynamics_tpu_torch.interop, "
         "qiskit_dynamics_tpu_torch.benchmarks, qiskit_dynamics_tpu_torch.kernels._build, "
         "qiskit_dynamics_tpu_torch.ops.sweep_solver, qiskit_dynamics_tpu_torch.ops.xla_sweep, "
-        "qiskit_dynamics_tpu_torch.ops.sweep_ad, qiskit_dynamics_tpu_torch.models.lindblad_model, "
+        "qiskit_dynamics_tpu_torch.ops.sweep_ad, qiskit_dynamics_tpu_torch.ops.member_sweep, "
+        "qiskit_dynamics_tpu_torch.ops.horner_pallas, qiskit_dynamics_tpu_torch.ops.polynomial_sweep, "
+        "qiskit_dynamics_tpu_torch.solvers.fused_sweep, qiskit_dynamics_tpu_torch.models.lindblad_model, "
         "qiskit_dynamics_tpu_torch.models.model_utils, "
         "qiskit_dynamics_tpu_torch.solvers.fixed_step_solvers; "
         "print('jax' in sys.modules)"
