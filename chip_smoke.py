@@ -11,11 +11,13 @@ raises and exits non-zero:
 1. device: a CUDA device is required; prints the card's name and power limit
    as ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
    reports them.
-2. build: compiles the four kernels, the lockstep-adaptive dopri5 sweep
+2. build: compiles the six kernel sources, the lockstep-adaptive dopri5 sweep
    (``qiskit_dynamics_tpu_torch/csrc/adaptive_sweep.cu``), the fixed-step
    Magnus-2 sweep (``csrc/sweep_magnus2.cu``), the member-major Magnus-2/3
-   sweep (``csrc/member_sweep.cu``) and the Horner expm action
-   (``csrc/horner_apply.cu``), one nvcc each, in parallel.
+   sweep (``csrc/member_sweep.cu``), the Horner expm action
+   (``csrc/horner_apply.cu``), the streamed propagator chain
+   (``csrc/chain_apply.cu``) and the batched product, Taylor expm and expm
+   backward (``csrc/batched_linalg.cu``), one nvcc each, in parallel.
 3. kernel against its eager twin on the card, in every mode (constant
    envelopes with padded lanes, envelope tables, eval times, budget
    exhaustion, stall guard) at n = 4, 9, 16, 27: final states within 1e-5,
@@ -66,6 +68,34 @@ raises and exits non-zero:
    members 0 and 2,047 within 2e-6 of DOP853 (1e-12); the einsum route and
    the eager engine are timed once each beside it.
 
+11. the chain, batched product, Taylor expm and expm backward kernels against
+   their plain versions on the card, on unit-norm inputs: n = 2, 4, 10, 16, 32,
+   37 and 1,000 lanes, chains of 1 and 7 steps, expm orders 8 and 12 with 0, 1
+   and 2 squarings. The chain kernel is built without multiply-add contraction
+   and must agree bit for bit; the others within 1e-5.
+12. the Dyson row of BASELINE config 4 at full width:
+   ``dyson_transmon_solver(device="cuda")`` (dim 10, nu = 5, alpha = -0.33,
+   r = 0.02, dt = 0.1, Chebyshev order 1, Dyson order 6) through
+   ``solve_sweep`` over 2,048 Gaussian amplitudes in [0.2, 1.0] (sigma = T/6,
+   centred at T/2), 1,000 steps, y0 = e_0; the chain kernel's launch counter
+   must rise; members 0, 1,023 and 2,047 within 1e-5 in max | |y| - |ref| |
+   of the port's host DOP853 (atol = rtol = 1e-12) rotated into the frame;
+   sims/s from a steady block; then the gradient of ``sum(|y[:, 1]|^2) / B``
+   over 8 checkpointed chunks of 256: grad-sims/s, and at the probes the
+   gradient within 1e-4 of max |g| of the complex128 plain route's autograd
+   gradient (computed on the host).
+13. the Magnus row at full width: ``magnus_transmon_solver(device="cuda")``
+   (Magnus order 3, one squaring), the same sweep and bars: the expm kernel
+   must launch once per call over 2,048,000 lanes and the chain kernel after
+   it; in the gradient the expm backward kernel must launch 8 times over
+   256,000 lanes. ``torch.linalg.matrix_exp`` is timed beside the expm
+   kernel. The batched product's entry point is driven once at full width
+   on this row's propagators (consecutive steps composed pairwise, 1,024,000
+   lanes) beside ``torch.einsum``.
+
+Earlier paths keep their widths; only their depth may be cut if the whole run
+nears its time limit (none is cut today).
+
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Nothing of JAX is imported.
 """
@@ -104,6 +134,15 @@ L256_SWEEP = 2_048
 L256_T = 10.0
 L256_MAX_DT = 0.08
 L256_TOL = 2e-6
+PT_DIM, PT_NU, PT_ALPHA, PT_R, PT_DT = 10, 5.0, -0.33, 0.02, 0.1
+PT_STEPS = 1_000
+PT_SWEEP = 2_048
+PT_CHUNKS = 8
+PT_TOL = 1e-5  # dyson_max_err and magnus_max_err against DOP853(1e-12)
+PT_KERNEL_TOL = 1e-5  # batched_linalg kernels vs torch.einsum: float32 roundoff
+PT_DIMS = (2, 4, 10, 16, 32)
+PT_BATCHES = (37, 1000)
+PT_EXPM_CASES = ((8, 0), (8, 2), (12, 0), (12, 1), (12, 2))
 # the card's peaks (H100 SXM data sheet): FP32 outside the tensor cores, HBM
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
@@ -808,6 +847,321 @@ def phase_lindblad256(torch, hp, Signal, lindblad_two_transmon_solver):
                 streaming_ms=stream_ms)
 
 
+# --------------------------------------------------------------------------
+# phase 11: the perturbative kernels against their plain versions
+# --------------------------------------------------------------------------
+def unitary_stack(gen, T, n, B):
+    """(T, n, n, B) complex64 near-unitary propagators: exp(-i H) to second
+    order for small Hermitian H, so a chain of them keeps the state's norm."""
+    h = gen.normal(size=(T, B, n, n)) + 1j * gen.normal(size=(T, B, n, n))
+    h = 0.3 / np.sqrt(n) * (h + np.conj(np.swapaxes(h, -1, -2))) / 2
+    u = np.eye(n) - 1j * h - h @ h / 2
+    return np.ascontiguousarray(np.transpose(u, (0, 2, 3, 1))).astype(np.complex64)
+
+
+def unit_planes(torch, gen, n, B, count=2):
+    """``count`` float32 (n, n, B) planes on the card; each lane's complex
+    matrix has Frobenius norm 1."""
+    x = gen.normal(size=(count // 2, 2, n, n, B))
+    x = x / np.sqrt((x**2).sum(axis=(1, 2, 3), keepdims=True))
+    return [torch.as_tensor(p, device="cuda").float() for p in x.reshape(count, n, n, B)]
+
+
+def planes_diff(got, want):
+    return max(float((g - w).abs().max()) for g, w in zip(got, want))
+
+
+def phase_perturbative_kernels(torch, ca, bl):
+    """B5, B10, B6, B7 against their plain versions. Returns the four max diffs."""
+    worst = dict(chain=0.0, matmul=0.0, expm=0.0, expm_bwd=0.0)
+    for n in PT_DIMS:
+        for B in PT_BATCHES:
+            for T in (1, 7):
+                gen = np.random.default_rng(100 * n + T)
+                props = torch.as_tensor(unitary_stack(gen, T, n, B), device="cuda")
+                y0 = gen.normal(size=(n, B)) + 1j * gen.normal(size=(n, B))
+                y0 = torch.as_tensor(y0 / np.linalg.norm(y0, axis=0), device="cuda").to(
+                    torch.complex64)
+                out, plain = ca.chain_apply_bol(props, y0), ca.chain_apply_bol_plain(props, y0)
+                torch.cuda.synchronize()
+                check(torch.equal(out, plain), f"B5 n={n} B={B} T={T}: kernel and plain version "
+                      f"differ by {float((out - plain).abs().max()):.2e}, not bit for bit")
+            planes = unit_planes(torch, np.random.default_rng(n), n, B, count=4)
+            diff = planes_diff(bl.matmul_bol(*planes), bl.matmul_bol_plain(*planes))
+            check(diff <= PT_KERNEL_TOL, f"B10 n={n} B={B}: kernel vs plain {diff:.2e}")
+            worst["matmul"] = max(worst["matmul"], diff)
+            for order, squarings in PT_EXPM_CASES:
+                diff = planes_diff(bl.expm_taylor_bol(*planes[:2], order, squarings),
+                                   bl.expm_taylor_bol_plain(*planes[:2], order, squarings))
+                check(diff <= PT_KERNEL_TOL,
+                      f"B6 n={n} B={B} order={order} squarings={squarings}: kernel vs plain "
+                      f"{diff:.2e} > {PT_KERNEL_TOL}")
+                worst["expm"] = max(worst["expm"], diff)
+                diff = planes_diff(bl.expm_taylor_bol_bwd(*planes, order, squarings),
+                                   bl.expm_taylor_bol_bwd_plain(*planes, order, squarings))
+                check(diff <= PT_KERNEL_TOL,
+                      f"B7 n={n} B={B} order={order} squarings={squarings}: kernel vs plain "
+                      f"{diff:.2e} > {PT_KERNEL_TOL}")
+                worst["expm_bwd"] = max(worst["expm_bwd"], diff)
+            log(f"  B5/B10/B6/B7 n={n:2d} B={B:4d}: chain bitwise, matmul {worst['matmul']:.2e}, "
+                f"expm {worst['expm']:.2e}, expm_bwd {worst['expm_bwd']:.2e} (running max)")
+    return worst
+
+
+# --------------------------------------------------------------------------
+# phases 12 and 13: the Dyson and Magnus rows of BASELINE config 4
+# --------------------------------------------------------------------------
+PT_T = PT_STEPS * PT_DT
+PT_SIGMA = PT_T / 6.0
+
+
+def perturbative_probes():
+    return [0, PT_SWEEP // 2 - 1, PT_SWEEP - 1]
+
+
+def perturbative_references(solve_ode, amps):
+    """Final states of ``amps`` in the frame of G0 (host DOP853, atol = rtol =
+    1e-12, on the lab-frame generator, then exp(-T G0)), and seconds per member."""
+    from scipy.linalg import expm
+
+    number = np.diag(np.arange(PT_DIM))
+    G0 = -1j * (2 * np.pi * PT_NU * number + np.pi * PT_ALPHA * number @ (number - np.eye(PT_DIM)))
+    a = np.diag(np.sqrt(np.arange(1, PT_DIM)), 1)
+    G1 = -1j * 2 * np.pi * PT_R * (a + a.conj().T)
+    y0 = np.zeros(PT_DIM, dtype=complex)
+    y0[0] = 1.0
+    start = time.perf_counter()
+    refs = []
+    for amp in amps:
+        def rhs(t, y, amp=amp):
+            envelope = amp * np.exp(-((t - PT_T / 2) ** 2) / (2 * PT_SIGMA**2))
+            return (G0 + np.real(envelope * np.exp(1j * 2 * np.pi * PT_NU * t)) * G1) @ y
+
+        res = solve_ode(rhs, [0.0, PT_T], y0, method="DOP853", atol=1e-12, rtol=1e-12)
+        refs.append(expm(-PT_T * G0) @ np.asarray(res.y[-1]))
+    return np.stack(refs), (time.perf_counter() - start) / len(amps)
+
+
+def perturbative_sweep(torch, Signal, solver, nu, amps):
+    """BASELINE config 4's sweep of ``solver`` over the Gaussian amplitudes
+    ``amps`` from y0 = e_0: (y0, signals_fn, forward call, gradient call). The
+    gradient is that of ``sum(|y[:, 1]|^2) / B`` over checkpointed chunks."""
+    from torch.utils.checkpoint import checkpoint
+
+    y0 = np.zeros(PT_DIM, dtype=complex)
+    y0[0] = 1.0
+
+    def signals_fn(amp):
+        return [Signal(lambda t: amp * torch.exp(-((t - PT_T / 2) ** 2) / (2 * PT_SIGMA**2)),
+                       carrier_freq=nu)]
+
+    def sweep():
+        with torch.no_grad():
+            return solver.solve_sweep(0.0, PT_STEPS, y0, signals_fn, amps)
+
+    def chunk_loss(chunk):
+        yf = solver.solve_sweep(0.0, PT_STEPS, y0, signals_fn, chunk)
+        return torch.sum(yf[:, 1].abs() ** 2)
+
+    def value_and_grad():
+        a = amps.clone().requires_grad_(True)
+        loss = sum(checkpoint(chunk_loss, chunk, use_reentrant=False)
+                   for chunk in a.reshape(PT_CHUNKS, -1)) / len(amps)
+        (g,) = torch.autograd.grad(loss, a)
+        return g
+
+    return y0, signals_fn, sweep, value_and_grad
+
+
+def phase_perturbative_row(torch, phase, name, make_solver, Signal, ca, bl, refs, ref_s):
+    """One row (Dyson or Magnus) at full width: forward, accuracy, gradient,
+    and its kernels alone at the shapes the row gave them."""
+    solver, nu = make_solver(device="cuda")
+    magnus = solver.model.expansion_method == "magnus"
+    terms = len(solver.model.expansion_polynomial.monomial_labels)
+    amps = torch.linspace(0.2, 1.0, PT_SWEEP, dtype=torch.float64, device="cuda")
+    y0, signals_fn, sweep, value_and_grad = perturbative_sweep(torch, Signal, solver, nu, amps)
+
+    wrappers = (ca.chain_apply_bol, bl.expm_taylor_bol, bl.expm_taylor_bol_bwd)
+
+    def counted(fn):
+        for w in wrappers:
+            w.launches = 0
+        with Capture(ca) as cap_chain, Capture(bl) as cap_linalg:
+            out = fn()
+            torch.cuda.synchronize()
+        return out, [w.launches for w in wrappers], cap_chain.last, cap_linalg.last
+
+    sweep()  # warm-up
+    torch.cuda.synchronize()
+    out, fwd_counts, chain_args, expm_args = counted(sweep)
+    check(fwd_counts[0] == 1, f"the {name} sweep launched the chain_apply kernel "
+          f"{fwd_counts[0]} times, not once")
+    check(fwd_counts[1] == (1 if magnus else 0), f"the {name} sweep launched the expm kernel "
+          f"{fwd_counts[1]} times")
+    check(out.shape == (PT_SWEEP, PT_DIM), f"{name} output shape {tuple(out.shape)}")
+    check(bool(torch.isfinite(torch.view_as_real(out)).all()), f"non-finite {name} states")
+    norm_dev = float(((out.abs() ** 2).sum(dim=1) - 1.0).abs().max())
+    probes = perturbative_probes()
+    got = out[probes].cpu().numpy()
+    err = float(np.max(np.abs(np.abs(got) - np.abs(refs))))
+    check(err <= PT_TOL, f"{name}_max_err {err:.2e} > {PT_TOL} against DOP853(1e-12)")
+    per_call, block_s, reps = steady_time(torch, sweep)
+
+    # the kernels alone, at the shapes the row gave them
+    props, y0_cols = chain_args
+    chain_ms = cuda_ms(torch, lambda: ca._launch_kernel(props, y0_cols), reps=5)
+    chain_out = ca._launch_kernel(props, y0_cols)
+    chain_plain_ms, chain_plain = timed_ms(torch, lambda: ca.chain_apply_bol_plain(props, y0_cols))
+    chain_diff = float((chain_out - chain_plain).abs().max())
+    check(torch.equal(chain_out, chain_plain), f"{name}: chain kernel and plain version differ by "
+          f"{chain_diff:.2e}, not bit for bit")
+    T, n, _, B = props.shape
+    chain_bound = bound(8.0 * T * n * n * B, 8.0 * T * n * n * B + 16.0 * n * B)
+    result = dict(name=name, chain=dict(
+        launches=fwd_counts[0], max_abs_err=chain_diff, ms=chain_ms, plain_ms=chain_plain_ms,
+        bound_ms=chain_bound[0], bound_by=chain_bound[1]))
+    del props, y0_cols, chain_args, chain_out, chain_plain
+    kernels_ms = chain_ms
+    expm_text = ""
+    if magnus:
+        which, planes, order, squarings = expm_args
+        check(which == "expm" and planes[0].shape[2] == PT_STEPS * PT_SWEEP,
+              f"the Magnus sweep's last batched_linalg launch was {which} over "
+              f"{planes[0].shape[2]} lanes")
+        lanes = planes[0].shape[2]
+        expm_ms = cuda_ms(torch, lambda: bl._launch_kernel(which, planes, order, squarings),
+                          reps=3)
+        expm_out = bl._launch_kernel(which, planes, order, squarings)
+        expm_plain_ms, expm_plain = timed_ms(
+            torch, lambda: bl.expm_taylor_bol_plain(*planes, order, squarings))
+        expm_diff = planes_diff(expm_out, expm_plain)
+        check(expm_diff <= PT_KERNEL_TOL, f"Magnus-row expm kernel vs plain {expm_diff:.2e}")
+        del expm_plain
+        stack = bl.from_bol(*planes).contiguous()  # (L, n, n) complex64, made outside the timing
+        torch.linalg.matrix_exp(stack[:1024])
+        library_ms, library = timed_ms(torch, lambda: torch.linalg.matrix_exp(stack))
+        library_diff = float((library - bl.from_bol(*expm_out)).abs().max())
+        del stack, library
+        expm_bound = bound((order - 1 + squarings) * 8.0 * n**3 * lanes, 16.0 * n * n * lanes)
+        result["expm"] = dict(
+            launches=fwd_counts[1], max_abs_err=expm_diff, ms=expm_ms, plain_ms=expm_plain_ms,
+            bound_ms=expm_bound[0], bound_by=expm_bound[1], library_ms=library_ms)
+        kernels_ms += expm_ms
+        expm_text = (
+            f"expm kernel {expm_ms:.3f} ms over {lanes} lanes (bound {expm_bound[0]:.3f} ms, "
+            f"{expm_bound[1]}), plain {expm_plain_ms:.1f} ms, torch.linalg.matrix_exp "
+            f"{library_ms:.1f} ms (differs from the kernel by {library_diff:.2e}), kernel vs "
+            f"plain {expm_diff:.2e}; ")
+
+        # the batched product's entry point, driven once at this row's width:
+        # consecutive step propagators composed pairwise
+        steps = torch.view_as_complex(
+            torch.stack(expm_out, dim=-1)).reshape(n, n, PT_STEPS // 2, 2, PT_SWEEP)
+        later = steps[:, :, :, 1].reshape(n, n, -1)
+        earlier = steps[:, :, :, 0].reshape(n, n, -1)
+        pair_planes = [later.real, later.imag, earlier.real, earlier.imag]
+        pair_planes = [p.contiguous() for p in pair_planes]
+        del steps, later, earlier, expm_out
+        bl.matmul_bol(*pair_planes)
+        bl.matmul_bol.launches = 0
+        product = bl.matmul_bol(*pair_planes)
+        torch.cuda.synchronize()
+        matmul_launches = bl.matmul_bol.launches
+        check(matmul_launches == 1, "matmul_bol did not launch its kernel")
+        matmul_ms = cuda_ms(torch, lambda: bl._launch_kernel("matmul", pair_planes), reps=5)
+        matmul_plain_ms, matmul_plain = timed_ms(torch, lambda: bl.matmul_bol_plain(*pair_planes))
+        matmul_diff = planes_diff(product, matmul_plain)
+        check(matmul_diff <= PT_KERNEL_TOL, f"full-width matmul kernel vs plain {matmul_diff:.2e}")
+        del matmul_plain, product
+        left = torch.complex(pair_planes[0], pair_planes[1])
+        right = torch.complex(pair_planes[2], pair_planes[3])
+        torch.einsum("ikb,kjb->ijb", left[:, :, :1024], right[:, :, :1024])
+        einsum_ms, _ = timed_ms(torch, lambda: torch.einsum("ikb,kjb->ijb", left, right))
+        pair_lanes = pair_planes[0].shape[2]
+        matmul_bound = bound(8.0 * n**3 * pair_lanes, 24.0 * n * n * pair_lanes)
+        result["matmul"] = dict(
+            launches=matmul_launches, max_abs_err=matmul_diff, ms=matmul_ms,
+            plain_ms=matmul_plain_ms, bound_ms=matmul_bound[0], bound_by=matmul_bound[1],
+            library_ms=einsum_ms)
+        expm_text += (
+            f"matmul_bol entry point on {pair_lanes} lanes (step pairs composed): kernel "
+            f"{matmul_ms:.3f} ms (bound {matmul_bound[0]:.3f} ms, {matmul_bound[1]}), plain "
+            f"{matmul_plain_ms:.1f} ms, torch.einsum {einsum_ms:.1f} ms, kernel vs plain "
+            f"{matmul_diff:.2e}; ")
+        del pair_planes, left, right, planes, expm_args
+    torch.cuda.empty_cache()
+
+    # the gradient over 8 checkpointed chunks
+    value_and_grad()  # warm-up
+    torch.cuda.synchronize()
+    grad, grad_counts, _, bwd_args = counted(value_and_grad)
+    check(grad.shape == (PT_SWEEP,) and bool(torch.isfinite(grad).all()),
+          f"{name} gradient shape or values")
+    check(grad_counts[0] == 2 * PT_CHUNKS, f"the {name} gradient launched the chain_apply kernel "
+          f"{grad_counts[0]} times, not {2 * PT_CHUNKS} (forward and recompute per chunk)")
+    if magnus:
+        check(grad_counts[2] == PT_CHUNKS, f"the Magnus gradient launched the expm backward "
+              f"kernel {grad_counts[2]} times, not {PT_CHUNKS}")
+    grad_call, grad_block, grad_reps = steady_time(torch, value_and_grad)
+
+    # reference gradient: the complex128 plain route's autograd, on the host
+    host_solver, _ = make_solver(device="cpu")
+    host_amps = amps[probes].cpu().requires_grad_(True)
+    host_out = host_solver.solve_sweep(0.0, PT_STEPS, y0, signals_fn, host_amps)
+    (ref_grad,) = torch.autograd.grad(torch.sum(host_out[:, 1].abs() ** 2) / PT_SWEEP, host_amps)
+    grad_err = float((grad[probes].cpu() - ref_grad).abs().max() / ref_grad.abs().max())
+    check(grad_err <= GRAD_TOL, f"{name} gradient vs complex128 plain route {grad_err:.2e} > "
+          f"{GRAD_TOL} of max |g|")
+    state_err = float(np.max(np.abs(got - host_out.detach().numpy())))
+
+    bwd_text = ""
+    if magnus:
+        which, planes, order, squarings = bwd_args
+        lanes = planes[0].shape[2]
+        check(which == "expm_bwd" and lanes == PT_STEPS * PT_SWEEP // PT_CHUNKS,
+              f"the Magnus gradient's last batched_linalg launch was {which} over {lanes} lanes")
+        bwd_ms = cuda_ms(torch, lambda: bl._launch_kernel(which, planes, order, squarings), reps=3)
+        bwd_out = bl._launch_kernel(which, planes, order, squarings)
+        bwd_plain_ms, bwd_plain = timed_ms(
+            torch, lambda: bl.expm_taylor_bol_bwd_plain(*planes, order, squarings))
+        bwd_diff = planes_diff(bwd_out, bwd_plain)
+        scale = max(float(p.abs().max()) for p in bwd_plain)
+        check(bwd_diff <= PT_KERNEL_TOL * max(scale, 1.0),
+              f"Magnus-row expm backward kernel vs plain {bwd_diff:.2e} (values up to {scale:.2e})")
+        bwd_bound = bound((3 * (order - 1) + 3 * squarings) * 8.0 * n**3 * lanes,
+                          24.0 * n * n * lanes)
+        result["expm_bwd"] = dict(
+            launches=grad_counts[2], max_abs_err=bwd_diff, ms=bwd_ms, plain_ms=bwd_plain_ms,
+            bound_ms=bwd_bound[0], bound_by=bwd_bound[1])
+        result["expm"]["launches"] += grad_counts[1]
+        bwd_text = (
+            f"expm backward kernel {bwd_ms:.3f} ms per launch over {lanes} lanes (bound "
+            f"{bwd_bound[0]:.3f} ms, {bwd_bound[1]}), plain {bwd_plain_ms:.1f} ms, kernel vs "
+            f"plain {bwd_diff:.2e}; ")
+        del planes, bwd_args, bwd_out, bwd_plain
+    result["chain"]["launches"] += grad_counts[0]
+    torch.cuda.empty_cache()
+    result.update(sims_per_s=PT_SWEEP / per_call, grad_sims_per_s=PT_SWEEP / grad_call,
+                  max_err=err, grad_err=grad_err)
+    print(
+        f"phase {phase} {name} row: dim {PT_DIM}, {PT_SWEEP} members, {PT_STEPS} steps of "
+        f"{PT_DT}, {terms} monomials: {PT_SWEEP / per_call:.1f} sims/s ({reps} calls in "
+        f"{block_s:.2f} s, {per_call * 1e3:.2f} ms/call = kernels {kernels_ms:.3f} ms + "
+        f"coefficients, monomials, matmul and glue {per_call * 1e3 - kernels_ms:.2f} ms); chain "
+        f"kernel {chain_ms:.3f} ms (bound {chain_bound[0]:.3f} ms, {chain_bound[1]}), plain "
+        f"{chain_plain_ms:.1f} ms, bitwise equal; {expm_text}{name}_max_err {err:.2e} "
+        f"(<= {PT_TOL}, {len(probes)} probes vs DOP853 1e-12 at {ref_s:.2f} s/sim; vs the "
+        f"complex128 plain route {state_err:.2e}); max |norm - 1| {norm_dev:.2e}; gradient over "
+        f"{PT_CHUNKS} checkpointed chunks: {PT_SWEEP / grad_call:.1f} grad-sims/s ({grad_reps} "
+        f"calls in {grad_block:.2f} s, {grad_call * 1e3:.1f} ms/call), {bwd_text}gradient vs "
+        f"complex128 plain route {grad_err:.2e} of max |g| (<= {GRAD_TOL}); launches forward "
+        f"[chain, expm, expm_bwd] {fwd_counts}, gradient {grad_counts}",
+        flush=True,
+    )
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -822,22 +1176,27 @@ def main() -> int:
     print(f"phase 1 device: {smi} (torch {torch.__version__}, CUDA {torch.version.cuda})",
           flush=True)
 
-    from qiskit_dynamics_tpu_torch import Signal, Solver
+    from qiskit_dynamics_tpu_torch import Signal, Solver, solve_ode
     from qiskit_dynamics_tpu_torch.benchmarks import (
         cr_solver,
+        dyson_transmon_solver,
         lindblad_qudit_solver,
         lindblad_two_transmon_solver,
+        magnus_transmon_solver,
     )
     from qiskit_dynamics_tpu_torch.kernels import _build
     from qiskit_dynamics_tpu_torch.ops import adaptive_sweep as asw
+    from qiskit_dynamics_tpu_torch.ops import batched_linalg as bl
+    from qiskit_dynamics_tpu_torch.ops import chain_apply as ca
     from qiskit_dynamics_tpu_torch.ops import horner_pallas as hp
     from qiskit_dynamics_tpu_torch.ops import member_sweep as msw
     from qiskit_dynamics_tpu_torch.ops import sweep_solver as ssw
     from qiskit_dynamics_tpu_torch.solvers.fused_sweep import _expand_lanes, sweep_arguments
 
-    # phase 2: build the four kernels, one nvcc each, in parallel
+    # phase 2: build the six kernel sources, one nvcc each, in parallel
     start = time.perf_counter()
-    names = ("adaptive_sweep", "sweep_magnus2", "member_sweep", "horner_apply")
+    names = ("adaptive_sweep", "sweep_magnus2", "member_sweep", "horner_apply", "chain_apply",
+             "batched_linalg")
     with ThreadPoolExecutor(len(names)) as pool:
         for lib in pool.map(_build.load, names):
             check(lib is not None, "a kernel library did not load")
@@ -848,7 +1207,7 @@ def main() -> int:
         reports.append(f"{name}: " + " ".join(
             line.strip() for line in (report[-1].read_text().splitlines() if report else [])
             if "registers" in line or "spill" in line
-        ))
+        )[:400])
     print(f"phase 2 build: {', '.join(names)} built in {build_s:.2f} s; " + "; ".join(reports),
           flush=True)
 
@@ -971,6 +1330,24 @@ def main() -> int:
     # phase 10: Lindblad dim 256 through the polynomial engine
     l256 = phase_lindblad256(torch, hp, Signal, lindblad_two_transmon_solver)
 
+    # phase 11: the perturbative kernels against their plain versions
+    start = time.perf_counter()
+    pt_diffs = phase_perturbative_kernels(torch, ca, bl)
+    print(f"phase 11 chain_apply, matmul_bol, expm_taylor_bol and expm_taylor_bol_bwd vs plain: "
+          f"n in {PT_DIMS} x lanes in {PT_BATCHES}, chains of 1 and 7 steps (bitwise equal), "
+          f"matmul (max diff {pt_diffs['matmul']:.2e}), expm and its backward at (order, "
+          f"squarings) in {PT_EXPM_CASES} (max diff {pt_diffs['expm']:.2e}, "
+          f"{pt_diffs['expm_bwd']:.2e}); all <= {PT_KERNEL_TOL} in "
+          f"{time.perf_counter() - start:.1f} s", flush=True)
+
+    # phases 12 and 13: the Dyson and Magnus rows, one set of host references
+    pt_amps = np.linspace(0.2, 1.0, PT_SWEEP)[perturbative_probes()]
+    pt_refs, pt_ref_s = perturbative_references(solve_ode, pt_amps)
+    dyson = phase_perturbative_row(torch, 12, "dyson", dyson_transmon_solver, Signal, ca, bl,
+                                   pt_refs, pt_ref_s)
+    magnus = phase_perturbative_row(torch, 13, "magnus", magnus_transmon_solver, Signal, ca, bl,
+                                    pt_refs, pt_ref_s)
+
     kernels = [{
         "name": "adaptive_sweep",
         "route": "cuda",
@@ -1023,6 +1400,39 @@ def main() -> int:
         "streaming_variant_ms": l256["streaming_ms"],
         "einsum_route_call_ms": l256["einsum_call_ms"],
         "eager_engine_call_ms": l256["eager_call_ms"],
+    }, {
+        "name": "chain_apply",
+        "route": "cuda",
+        "source": "qiskit_dynamics_tpu_torch/csrc/chain_apply.cu",
+        "replaces": "qiskit_dynamics_tpu/ops/chain_apply.py:28",
+        **dyson["chain"],
+        "library_ms": None,
+        "dyson_sims_per_s": dyson["sims_per_s"],
+        "dyson_grad_sims_per_s": dyson["grad_sims_per_s"],
+        "dyson_max_err": dyson["max_err"],
+        "magnus_row": magnus["chain"],
+    }, {
+        "name": "expm_taylor_bol",
+        "route": "cuda",
+        "source": "qiskit_dynamics_tpu_torch/csrc/batched_linalg.cu",
+        "replaces": "qiskit_dynamics_tpu/ops/batched_linalg.py:99",
+        **magnus["expm"],
+        "magnus_sims_per_s": magnus["sims_per_s"],
+        "magnus_grad_sims_per_s": magnus["grad_sims_per_s"],
+        "magnus_max_err": magnus["max_err"],
+    }, {
+        "name": "expm_taylor_bol_bwd",
+        "route": "cuda",
+        "source": "qiskit_dynamics_tpu_torch/csrc/batched_linalg.cu",
+        "replaces": "qiskit_dynamics_tpu/ops/batched_linalg.py:192",
+        **magnus["expm_bwd"],
+        "library_ms": None,
+    }, {
+        "name": "matmul_bol",
+        "route": "cuda",
+        "source": "qiskit_dynamics_tpu_torch/csrc/batched_linalg.cu",
+        "replaces": "qiskit_dynamics_tpu/ops/batched_linalg.py:52",
+        **magnus["matmul"],
     }]
     print(json.dumps({"kernels": kernels}))
     print(smi)

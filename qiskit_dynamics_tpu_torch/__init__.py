@@ -16,8 +16,12 @@ the dense and vectorized-Lindblad operator collections, generator,
 Hamiltonian and vectorized Lindblad models, the RWA, the lockstep-adaptive
 dopri5 sweep (kernel B1 and twin), the fixed-step Magnus-2 sweep (kernel B2,
 plain version, eager engine, autograd wrapper), the fused sweep glue of both,
-scipy host solves, ``Solver`` and ``benchmarks.cr_solver``. ``ROADMAP.md``
-lists what is still to come.
+scipy host solves, ``Solver`` and ``benchmarks.cr_solver``; the large-dim
+engines (kernels B3, B4); the perturbation package (``ArrayPolynomial``,
+``solve_lmde_perturbation``) and the perturbative solvers ``DysonSolver`` and
+``MagnusSolver`` with their sweep on the streamed propagator chain (kernel
+B5) and the batched Taylor ``expm`` and its backward (kernels B6, B7, B10).
+``ROADMAP.md`` lists what is still to come.
 """
 import torch as _torch
 
@@ -39,9 +43,14 @@ from .solvers import (
     OdeResult,
     fused_adaptive_sweep_solve,
     fused_sweep_solve,
+    DysonSolver,
+    MagnusSolver,
+    ExpansionModel,
 )
+from .perturbation import solve_lmde_perturbation, ArrayPolynomial
 
 from . import models
 from . import signals
 from . import solvers
 from . import ops
+from . import perturbation

@@ -6,8 +6,9 @@ frame equal to diag(H0) and the RWA at the mean transmon frequency, the
 model of the 10,000-point amplitude sweep. ``lindblad_qudit_solver`` and
 ``lindblad_two_transmon_solver`` are the two large-dimension vectorized
 Lindblad models the JAX package benchmarks inline (``bench.py``, the dim-8 and
-dim-256 rows). The JAX package's other benchmark models are still to be
-ported (``ROADMAP.md``).
+dim-256 rows). ``dyson_transmon_solver`` and ``magnus_transmon_solver`` are the
+single-transmon perturbative solvers of BASELINE config 4. The JAX package's
+other benchmark models are still to be ported (``ROADMAP.md``).
 """
 from __future__ import annotations
 
@@ -18,7 +19,13 @@ import torch
 
 from .solvers import Solver
 
-__all__ = ["cr_solver", "lindblad_qudit_solver", "lindblad_two_transmon_solver"]
+__all__ = [
+    "cr_solver",
+    "lindblad_qudit_solver",
+    "lindblad_two_transmon_solver",
+    "dyson_transmon_solver",
+    "magnus_transmon_solver",
+]
 
 
 def _transmon_ops(dim: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -140,3 +147,77 @@ def lindblad_two_transmon_solver(device=None, dtype: torch.dtype = torch.complex
     rho0 = np.zeros((16, 16), dtype=complex)
     rho0[1, 1] = 1.0
     return solver, rho0, 5.1
+
+
+def dyson_transmon_solver(
+    dim: int = 10,
+    nu: float = 5.0,
+    alpha: float = -0.33,
+    r: float = 0.02,
+    dt: float = 0.1,
+    chebyshev_order: int = 1,
+    expansion_order: int = 6,
+    device=None,
+    dtype: torch.dtype = torch.complex128,
+):
+    """BASELINE config 4: single-transmon ``DysonSolver`` (Dysolve stepping).
+
+    dim-10 transmon in its own rotating frame, one drive at the transmon
+    frequency, coarse dt = 0.1 (the perturbative solvers' whole point is
+    stepping far beyond the carrier period at fixed precompute).
+
+    Returns:
+        (dyson_solver, nu): the solver and the drive carrier frequency.
+    """
+    return _perturbative_transmon_solver(
+        "dyson", dim, nu, alpha, r, dt, chebyshev_order, expansion_order, device, dtype
+    )
+
+
+def magnus_transmon_solver(
+    dim: int = 10,
+    nu: float = 5.0,
+    alpha: float = -0.33,
+    r: float = 0.02,
+    dt: float = 0.1,
+    chebyshev_order: int = 1,
+    expansion_order: int = 3,
+    device=None,
+    dtype: torch.dtype = torch.complex128,
+):
+    """BASELINE config 4, Magnus variant: the same transmon as
+    :func:`dyson_transmon_solver` stepped with ``MagnusSolver`` (per-step
+    ``expm`` of the Magnus polynomial; unitary per step, so coarser expansion
+    orders hold).
+
+    Returns:
+        (magnus_solver, nu): the solver and the drive carrier frequency.
+    """
+    return _perturbative_transmon_solver(
+        "magnus", dim, nu, alpha, r, dt, chebyshev_order, expansion_order, device, dtype
+    )
+
+
+def _perturbative_transmon_solver(
+    kind, dim, nu, alpha, r, dt, chebyshev_order, expansion_order, device, dtype
+):
+    from .solvers import DysonSolver, MagnusSolver
+
+    a, adag, N = _transmon_ops(dim)
+    H0 = 2 * np.pi * nu * N + np.pi * alpha * N @ (N - np.eye(dim))
+    G0 = -1j * H0
+    G1 = -1j * 2 * np.pi * r * (a + adag)
+    cls = DysonSolver if kind == "dyson" else MagnusSolver
+    solver = cls(
+        operators=[G1],
+        rotating_frame=G0,
+        dt=dt,
+        carrier_freqs=[nu],
+        chebyshev_orders=[chebyshev_order],
+        expansion_order=expansion_order,
+        device=device,
+        dtype=dtype,
+        atol=1e-12,
+        rtol=1e-12,
+    )
+    return solver, nu

@@ -1,0 +1,450 @@
+// Batch-minor products, Taylor expm and its backward pass for large sweeps of
+// small complex matrices, for Hopper (sm_90a).
+//
+// Replaces three TPU kernels of qiskit_dynamics_tpu/ops/batched_linalg.py
+// (Pallas): _matmul_kernel (launched by matmul_bol), _expm_kernel
+// (expm_taylor_bol) and _expm_bwd_kernel (expm_taylor_bol_bwd). Wrappers and
+// plain versions: qiskit_dynamics_tpu_torch/ops/batched_linalg.py.
+//
+// Layout. Matrices come as (n, n, L) float32 real and imaginary planes with the
+// lane (sweep member x time step) minor, n <= 32. A plane is addressed with an
+// element stride es: 1 for a contiguous plane, 2 for the real or imaginary
+// view of a contiguous complex64 tensor, so neither form needs a copy.
+// Outputs are written as the two views of one complex64 tensor (stride 2).
+//
+// What they compute, per lane:
+// - matmul_bol_kernel:  C = A B.
+// - expm_bol_kernel:    s = X 2^-q; t = I + s/p; t <- I + (s t)/k for
+//                       k = p-1..1; t <- t t, q times; P = t.
+// - expm_bwd_bol_kernel: the vector-Jacobian product of that recursion. The
+//   forward is recomputed with every stage operand t kept (p - 1 + q of them);
+//   then, from g = cotangent of P: per squaring g <- y^H g + g y^H; per Horner
+//   stage (k = 1..p-1) sbar += (g t_{k+1}^H)/k and g <- (s^H g)/k; finally
+//   sbar += g/p and Xbar = sbar 2^-q.
+//
+// What bounds them on this card. expm and its backward are operation-bound:
+// (p - 1 + q) and (3(p - 1) + 3q) products of 8 n^3 float32 operations per lane
+// against 16 n^2 and 24 n^2 bytes of traffic (at n = 10, p = 12, q = 1: 96 and
+// 288 kFLOP against 1.6 and 2.4 kB). matmul alone is byte-bound (8 n^3 against
+// 24 n^2 bytes). What limits a product held in shared memory is neither: it is
+// the shared-memory traffic, two 8-byte loads per complex multiply-add when a
+// thread forms one entry at a time (the first version of this file: 14.4 ms
+// for expm at 2,048,000 lanes of n = 10 against a 2.9 ms bound).
+//
+// Design. One block owns LB lanes (a power of two up to 32, the largest whose
+// matrices fit about half an SM's shared memory, so two blocks share an SM).
+// Working matrices are float2 arrays [row][col][lane] in shared memory, lane
+// minor: a half-warp's 8-byte accesses fall on consecutive words. A thread
+// owns one TILE x TILE block of entries of its lane's matrices (TILE = 5
+// where it divides n, as at n = 10, else 4; ragged tiles clamp their loads
+// and mask their stores). All three entry points share one product routine,
+// cmm: per m the thread loads TILE entries of op(A) and TILE of op(B) and
+// does TILE^2 complex multiply-adds in registers, 2/TILE loads per
+// multiply-add instead of 2, summing over m in order. A^H B reads A
+// transposed in place and A B^H reads B transposed in place, with the
+// conjugation applied in registers (the TPU kernel needed an explicit
+// conjugate-transpose copy for the latter). Every elementwise pass touches
+// only the thread's own tile, so it needs no barrier. Horner stages alternate
+// between two buffers instead of copying the product back. The backward pass
+// keeps its stage operands in a per-block scratch in device memory: each
+// thread writes and later reads back only its own tile, so no fence is
+// needed, and with one block per resident slot the scratch (12 x 800 B per
+// lane at n = 10) stays mostly in L2. Blocks of the backward kernel are
+// persistent and walk over the lane tiles. Ragged last lane tiles are masked
+// (dead lanes compute on zeros and store nothing).
+
+#include <cuda_pipeline.h>
+#include <cuda_runtime.h>
+#include <stddef.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kMaxN = 32;
+constexpr int kMaxThreads = 1024;
+constexpr size_t kSharedTarget = 110 * 1024;  // two blocks of this size share an SM
+constexpr size_t kSharedLimit = 232448;       // dynamic shared memory a block may use
+constexpr int kOutStride = 2;                 // outputs are views of a complex64 tensor
+
+enum Op { kAB, kAhB, kABh };
+
+// What a thread owns: lane `lane` of the block's LB lanes (global lane b), and
+// the entries [i0, i0 + TILE) x [j0, j0 + TILE) of that lane's matrices.
+struct Own {
+  int n, LB, lane, i0, j0;
+  long long L, b;
+  bool live;
+};
+
+template <int TILE>
+__device__ __forceinline__ Own own_of(int n, int LB, long long L, long long tile) {
+  const int per_side = (n + TILE - 1) / TILE;
+  const int q = threadIdx.x / LB;
+  Own t;
+  t.n = n;
+  t.LB = LB;
+  t.lane = threadIdx.x % LB;
+  t.i0 = (q / per_side) * TILE;
+  t.j0 = (q % per_side) * TILE;
+  t.L = L;
+  t.b = tile * LB + t.lane;
+  t.live = t.b < L;
+  return t;
+}
+
+// The thread's tile of C (+)= coef * op(A) op(B) (+ I); C is neither A nor B.
+template <int OP, int TILE>
+__device__ __forceinline__ void cmm(const Own& t, const float2* __restrict__ A,
+                                    const float2* __restrict__ B, float2* __restrict__ C,
+                                    float coef, bool accumulate, bool add_identity) {
+  const int n = t.n, LB = t.LB, last = t.n - 1;
+  float2 acc[TILE][TILE];
+#pragma unroll
+  for (int ii = 0; ii < TILE; ++ii)
+#pragma unroll
+    for (int jj = 0; jj < TILE; ++jj) acc[ii][jj] = make_float2(0.f, 0.f);
+  int rows[TILE], cols[TILE];
+#pragma unroll
+  for (int k = 0; k < TILE; ++k) {
+    rows[k] = min(t.i0 + k, last);  // ragged tiles: clamped loads, masked stores
+    cols[k] = min(t.j0 + k, last);
+  }
+#pragma unroll 2
+  for (int m = 0; m < n; ++m) {
+    float2 a[TILE], b[TILE];
+#pragma unroll
+    for (int k = 0; k < TILE; ++k) {
+      a[k] = OP == kAhB ? A[(m * n + rows[k]) * LB + t.lane] : A[(rows[k] * n + m) * LB + t.lane];
+      if (OP == kAhB) a[k].y = -a[k].y;
+      b[k] = OP == kABh ? B[(cols[k] * n + m) * LB + t.lane] : B[(m * n + cols[k]) * LB + t.lane];
+      if (OP == kABh) b[k].y = -b[k].y;
+    }
+#pragma unroll
+    for (int ii = 0; ii < TILE; ++ii)
+#pragma unroll
+      for (int jj = 0; jj < TILE; ++jj) {
+        // four fused multiply-adds (written out: "acc += p - q" would cost a
+        // multiply, a fused multiply-add and an add)
+        acc[ii][jj].x = fmaf(a[ii].x, b[jj].x, acc[ii][jj].x);
+        acc[ii][jj].x = fmaf(-a[ii].y, b[jj].y, acc[ii][jj].x);
+        acc[ii][jj].y = fmaf(a[ii].x, b[jj].y, acc[ii][jj].y);
+        acc[ii][jj].y = fmaf(a[ii].y, b[jj].x, acc[ii][jj].y);
+      }
+  }
+#pragma unroll
+  for (int ii = 0; ii < TILE; ++ii)
+#pragma unroll
+    for (int jj = 0; jj < TILE; ++jj) {
+      const int i = t.i0 + ii, j = t.j0 + jj;
+      if (i < n && j < n) {
+        float2 c = make_float2(acc[ii][jj].x * coef, acc[ii][jj].y * coef);
+        const int at = (i * n + j) * LB + t.lane;
+        if (accumulate) {
+          c.x += C[at].x;
+          c.y += C[at].y;
+        }
+        if (add_identity && i == j) c.x += 1.f;
+        C[at] = c;
+      }
+    }
+  __syncthreads();
+}
+
+// Calls f(i, j, at) for every entry of the thread's tile: at is the entry's
+// place in a shared-memory matrix.
+template <int TILE, typename F>
+__device__ __forceinline__ void for_own(const Own& t, F f) {
+#pragma unroll
+  for (int ii = 0; ii < TILE; ++ii)
+#pragma unroll
+    for (int jj = 0; jj < TILE; ++jj) {
+      const int i = t.i0 + ii, j = t.j0 + jj;
+      if (i < t.n && j < t.n) f(i, j, (i * t.n + j) * t.LB + t.lane);
+    }
+}
+
+// Starts the copy of the thread's tile of a matrix of planes (pr, pi) with
+// element stride es into M, global to shared memory without passing through
+// registers, so all of a thread's entries are in flight at once (with 2 or 4
+// threads per lane a register-staged load leaves too few bytes in flight).
+// finish_loads() completes it for the issuing thread.
+template <int TILE>
+__device__ __forceinline__ void load_own(const Own& t, const float* pr, const float* pi, int es,
+                                         float2* M) {
+  for_own<TILE>(t, [&](int i, int j, int at) {
+    if (t.live) {
+      const long long g = ((long long)(i * t.n + j) * t.L + t.b) * es;
+      __pipeline_memcpy_async(&M[at].x, pr + g, sizeof(float));
+      __pipeline_memcpy_async(&M[at].y, pi + g, sizeof(float));
+    } else {
+      M[at] = make_float2(0.f, 0.f);
+    }
+  });
+}
+
+__device__ __forceinline__ void finish_loads() {
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+}
+
+template <int TILE>
+__device__ __forceinline__ void store_own(const Own& t, const float2* M, float scale, float* pr,
+                                          float* pi) {
+  if (!t.live) return;
+  for_own<TILE>(t, [&](int i, int j, int at) {
+    const long long g = ((long long)(i * t.n + j) * t.L + t.b) * kOutStride;
+    pr[g] = M[at].x * scale;
+    pi[g] = M[at].y * scale;
+  });
+}
+
+// The thread's tile of S = X * scale (in place) and T = S / order + I.
+template <int TILE>
+__device__ __forceinline__ void horner_start(const Own& t, float2* S, float scale, int order,
+                                             float2* T) {
+  for_own<TILE>(t, [&](int i, int j, int at) {
+    const float2 s = make_float2(S[at].x * scale, S[at].y * scale);
+    S[at] = s;
+    float2 v = make_float2(s.x / order, s.y / order);
+    if (i == j) v.x += 1.f;
+    T[at] = v;
+  });
+}
+
+template <int TILE>
+__device__ __forceinline__ void copy_own(const Own& t, const float2* from, float2* to) {
+  for_own<TILE>(t, [&](int, int, int at) { to[at] = from[at]; });
+}
+
+template <int TILE>
+__global__ void matmul_bol_kernel(const float* ar, const float* ai, const float* br,
+                                  const float* bi, float* cr, float* ci, int n, long long L,
+                                  int LB, int es_a, int es_b) {
+  extern __shared__ float2 smem[];
+  const int mat = n * n * LB;
+  float2 *A = smem, *B = smem + mat, *C = smem + 2 * mat;
+  const Own t = own_of<TILE>(n, LB, L, blockIdx.x);
+  load_own<TILE>(t, ar, ai, es_a, A);
+  load_own<TILE>(t, br, bi, es_b, B);
+  finish_loads();
+  __syncthreads();
+  cmm<kAB, TILE>(t, A, B, C, 1.f, false, false);
+  store_own<TILE>(t, C, 1.f, cr, ci);
+}
+
+template <int TILE>
+__global__ void expm_bol_kernel(const float* xr, const float* xi, float* pr, float* pi, int n,
+                                long long L, int LB, int order, int squarings, int es) {
+  extern __shared__ float2 smem[];
+  const int mat = n * n * LB;
+  float2 *S = smem, *T = smem + mat, *W = smem + 2 * mat;
+  const Own t = own_of<TILE>(n, LB, L, blockIdx.x);
+  load_own<TILE>(t, xr, xi, es, S);
+  finish_loads();
+  horner_start<TILE>(t, S, 1.f / (float)(1 << squarings), order, T);
+  __syncthreads();
+  for (int k = order - 1; k >= 1; --k) {
+    cmm<kAB, TILE>(t, S, T, W, 1.f / k, false, true);
+    float2* swap = T; T = W; W = swap;
+  }
+  for (int q = 0; q < squarings; ++q) {
+    cmm<kAB, TILE>(t, T, T, W, 1.f, false, false);
+    float2* swap = T; T = W; W = swap;
+  }
+  store_own<TILE>(t, T, 1.f, pr, pi);
+}
+
+template <int TILE>
+__global__ void expm_bwd_bol_kernel(const float* xr, const float* xi, const float* ctr,
+                                    const float* cti, float* gxr, float* gxi, float2* scratch,
+                                    int n, long long L, int LB, int order, int squarings,
+                                    int es_x, int es_ct) {
+  extern __shared__ float2 smem[];
+  const int mat = n * n * LB;
+  float2 *S = smem, *G = smem + mat, *W = smem + 2 * mat, *Y = smem + 3 * mat,
+         *GX = smem + 4 * mat;
+  const int stages = order - 1 + squarings;
+  float2* stage = scratch + (size_t)blockIdx.x * stages * mat;
+  const float scale = 1.f / (float)(1 << squarings);
+  const long long tiles = (L + LB - 1) / LB;
+
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const Own t = own_of<TILE>(n, LB, L, tile);
+
+    // forward recompute, keeping every stage operand
+    load_own<TILE>(t, xr, xi, es_x, S);
+    finish_loads();
+    horner_start<TILE>(t, S, scale, order, G);
+    __syncthreads();
+    int idx = 0;
+    for (int k = order - 1; k >= 1; --k, ++idx) {
+      copy_own<TILE>(t, G, stage + (size_t)idx * mat);
+      cmm<kAB, TILE>(t, S, G, W, 1.f / k, false, true);
+      float2* swap = G; G = W; W = swap;
+    }
+    for (int q = 0; q < squarings; ++q, ++idx) {
+      copy_own<TILE>(t, G, stage + (size_t)idx * mat);
+      cmm<kAB, TILE>(t, G, G, W, 1.f, false, false);
+      float2* swap = G; G = W; W = swap;
+    }
+
+    // reverse sweep: g <- cotangent of the output
+    load_own<TILE>(t, ctr, cti, es_ct, G);
+    for_own<TILE>(t, [&](int, int, int at) { GX[at] = make_float2(0.f, 0.f); });
+    finish_loads();
+    for (int q = 0; q < squarings; ++q) {
+      --idx;
+      copy_own<TILE>(t, stage + (size_t)idx * mat, Y);
+      __syncthreads();
+      cmm<kAhB, TILE>(t, Y, G, W, 1.f, false, false);  // w  = y^H g
+      cmm<kABh, TILE>(t, G, Y, W, 1.f, true, false);   // w += g y^H
+      float2* swap = G; G = W; W = swap;
+    }
+    for (int k = 1; k < order; ++k) {
+      --idx;
+      copy_own<TILE>(t, stage + (size_t)idx * mat, Y);
+      __syncthreads();
+      cmm<kABh, TILE>(t, G, Y, GX, 1.f / k, true, false);  // sbar += g t^H / k
+      cmm<kAhB, TILE>(t, S, G, W, 1.f / k, false, false);  // g <- s^H g / k
+      float2* swap = G; G = W; W = swap;
+    }
+    // the top of the recursion, t_p = s / p + I, and the scaling of X
+    for_own<TILE>(t, [&](int, int, int at) {
+      GX[at].x += G[at].x / order;
+      GX[at].y += G[at].y / order;
+    });
+    store_own<TILE>(t, GX, scale, gxr, gxi);
+    __syncthreads();  // the next tile overwrites S, G and GX
+  }
+}
+
+// The register tile: 5 where it divides n (no ragged tiles at n = 10), else 4.
+int tile_of(int n) { return n % 5 == 0 ? 5 : 4; }
+
+int threads_per_lane(int n) {
+  const int per_side = (n + tile_of(n) - 1) / tile_of(n);
+  return per_side * per_side;
+}
+
+// Lanes per block: the largest power of two up to 32 whose `mats` matrices fit
+// the shared-memory target and whose threads fit a block.
+int lanes_per_block(int n, int mats) {
+  int lb = 32;
+  while (lb > 1 && ((size_t)mats * n * n * lb * sizeof(float2) > kSharedTarget ||
+                    threads_per_lane(n) * lb > kMaxThreads))
+    lb /= 2;
+  return lb;
+}
+
+size_t shared_bytes(int n, int mats, int lb) { return (size_t)mats * n * n * lb * sizeof(float2); }
+
+template <typename Kernel>
+cudaError_t allow_shared(Kernel kernel, size_t bytes) {
+  if (bytes > kSharedLimit) return cudaErrorInvalidValue;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+bool bad_shape(int n, int L) { return n < 1 || n > kMaxN || L < 1; }
+
+constexpr int kBwdMats = 5;
+
+template <int TILE>
+cudaError_t launch_matmul(const float* ar, const float* ai, const float* br, const float* bi,
+                          float* cr, float* ci, int n, int L, int es_a, int es_b,
+                          cudaStream_t stream) {
+  const int lb = lanes_per_block(n, 3);
+  const size_t smem = shared_bytes(n, 3, lb);
+  cudaError_t err = allow_shared(matmul_bol_kernel<TILE>, smem);
+  if (err != cudaSuccess) return err;
+  matmul_bol_kernel<TILE><<<(L + lb - 1) / lb, threads_per_lane(n) * lb, smem, stream>>>(
+      ar, ai, br, bi, cr, ci, n, L, lb, es_a, es_b);
+  return cudaGetLastError();
+}
+
+template <int TILE>
+cudaError_t launch_expm(const float* xr, const float* xi, float* pr, float* pi, int n, int L,
+                        int order, int squarings, int es, cudaStream_t stream) {
+  const int lb = lanes_per_block(n, 3);
+  const size_t smem = shared_bytes(n, 3, lb);
+  cudaError_t err = allow_shared(expm_bol_kernel<TILE>, smem);
+  if (err != cudaSuccess) return err;
+  expm_bol_kernel<TILE><<<(L + lb - 1) / lb, threads_per_lane(n) * lb, smem, stream>>>(
+      xr, xi, pr, pi, n, L, lb, order, squarings, es);
+  return cudaGetLastError();
+}
+
+template <int TILE>
+cudaError_t launch_expm_bwd(const float* xr, const float* xi, const float* ctr, const float* cti,
+                            float* gxr, float* gxi, float2* scratch, int n, int L, int order,
+                            int squarings, int blocks, int es_x, int es_ct, cudaStream_t stream) {
+  const int lb = lanes_per_block(n, kBwdMats);
+  const size_t smem = shared_bytes(n, kBwdMats, lb);
+  cudaError_t err = allow_shared(expm_bwd_bol_kernel<TILE>, smem);
+  if (err != cudaSuccess) return err;
+  expm_bwd_bol_kernel<TILE><<<blocks, threads_per_lane(n) * lb, smem, stream>>>(
+      xr, xi, ctr, cti, gxr, gxi, scratch, n, L, lb, order, squarings, es_x, es_ct);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+int matmul_bol_launch(const void* ar, const void* ai, const void* br, const void* bi, void* cr,
+                      void* ci, int n, int L, int es_a, int es_b, void* stream) {
+  if (bad_shape(n, L)) return (int)cudaErrorInvalidValue;
+  auto launch = tile_of(n) == 5 ? launch_matmul<5> : launch_matmul<4>;
+  return (int)launch((const float*)ar, (const float*)ai, (const float*)br, (const float*)bi,
+                     (float*)cr, (float*)ci, n, L, es_a, es_b, (cudaStream_t)stream);
+}
+
+int expm_bol_launch(const void* xr, const void* xi, void* pr, void* pi, int n, int L, int order,
+                    int squarings, int es, void* stream) {
+  if (bad_shape(n, L) || order < 1 || squarings < 0 || squarings > 30)
+    return (int)cudaErrorInvalidValue;
+  auto launch = tile_of(n) == 5 ? launch_expm<5> : launch_expm<4>;
+  return (int)launch((const float*)xr, (const float*)xi, (float*)pr, (float*)pi, n, L, order,
+                     squarings, es, (cudaStream_t)stream);
+}
+
+// Persistent blocks of the backward kernel: as many as are resident at once,
+// at most one per lane tile.
+int expm_bwd_bol_blocks(int n, int L) {
+  if (bad_shape(n, L)) return 0;
+  const int lb = lanes_per_block(n, kBwdMats);
+  int device = 0, sms = 0;
+  if (cudaGetDevice(&device) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess)
+    return 0;
+  size_t per_sm = kSharedLimit / (shared_bytes(n, kBwdMats, lb) + 1024);
+  if (per_sm < 1) per_sm = 1;
+  if (per_sm > 4) per_sm = 4;
+  const long long tiles = ((long long)L + lb - 1) / lb;
+  const long long resident = (long long)sms * (long long)per_sm;
+  return (int)(tiles < resident ? tiles : resident);
+}
+
+// float32 elements of the stage scratch for `blocks` blocks.
+long long expm_bwd_bol_scratch_floats(int n, int blocks, int order, int squarings) {
+  const int lb = lanes_per_block(n, kBwdMats);
+  const long long stages = order - 1 + squarings;
+  const long long floats = 2LL * blocks * stages * n * n * lb;
+  return floats > 0 ? floats : 2;
+}
+
+int expm_bwd_bol_launch(const void* xr, const void* xi, const void* ctr, const void* cti,
+                        void* gxr, void* gxi, void* scratch, int n, int L, int order,
+                        int squarings, int blocks, int es_x, int es_ct, void* stream) {
+  if (bad_shape(n, L) || order < 1 || squarings < 0 || squarings > 30 || blocks < 1)
+    return (int)cudaErrorInvalidValue;
+  auto launch = tile_of(n) == 5 ? launch_expm_bwd<5> : launch_expm_bwd<4>;
+  return (int)launch((const float*)xr, (const float*)xi, (const float*)ctr, (const float*)cti,
+                     (float*)gxr, (float*)gxi, (float2*)scratch, n, L, order, squarings, blocks,
+                     es_x, es_ct, (cudaStream_t)stream);
+}
+
+const char* batched_linalg_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+}  // extern "C"

@@ -1,0 +1,125 @@
+// Streamed propagator-chain application, for Hopper (sm_90a).
+//
+// Replaces the TPU kernel qiskit_dynamics_tpu/ops/chain_apply.py::_kernel
+// (Pallas, launched by chain_apply_bol). Wrapper and plain version:
+// qiskit_dynamics_tpu_torch/ops/chain_apply.py.
+//
+// What it computes. For every lane b, from the complex64 propagator stack
+// U (T, n, n, B) and the states y0 (n, B):
+//   y_b <- U[T-1, :, :, b] ... U[1, :, :, b] U[0, :, :, b] y_b
+// with y_new[i] = sum_m U[t, i, m, b] y[m], the sum taken over m in order,
+// each term as (ur yr - ui yi, ur yi + ui yr). This file is built without
+// multiply-add contraction (kernels/_build.py), so the plain version, which
+// does the same rounded operations on real and imaginary planes, agrees
+// with it bit for bit.
+//
+// What bounds it on this card. Bytes: every propagator entry is read once
+// and used once (8 n^2 T B bytes: 1.64 GB at n = 10, T = 1,000, B = 2,048)
+// for 8 operations each. The time steps are sequential and there are only B
+// lanes, so what matters is how many bytes are in flight.
+//
+// Design. The sequential grid axis of the TPU kernel is a loop inside the
+// block. A block owns LANES lanes (16, or 8 above n = 16) and has one thread
+// per (row, lane): thread (i, l) reads row i of its lane's propagator, n
+// consecutive-lane float2 loads that coalesce across the lanes, straight
+// from the interleaved complex tensor (no split into planes, any strides
+// over the first three axes). The state lives in shared memory, double
+// buffered, so a step costs one barrier. Row t + 1 is loaded into registers
+// before step t is multiplied, which keeps two steps of loads in flight per
+// thread. The last block masks its ragged edge.
+//
+// n is a template argument (1 to 32) so that the row stays in registers.
+
+#include <cuda_runtime.h>
+#include <stddef.h>
+#include <stdint.h>
+
+namespace {
+
+template <int N, int LANES>
+__global__ void __launch_bounds__(N * LANES)
+chain_apply_kernel(const float2* __restrict__ props, const float2* __restrict__ y0,
+                   float2* __restrict__ out, int T, int B, long long st, long long si,
+                   long long sj) {
+  __shared__ float2 ybuf[2][N][LANES];
+  const int l = threadIdx.x % LANES, i = threadIdx.x / LANES;
+  const int b = blockIdx.x * LANES + l;
+  const bool live = b < B;
+  const float2 zero = make_float2(0.f, 0.f);
+
+  ybuf[0][i][l] = live ? y0[(size_t)i * B + b] : zero;
+  // entry (t, i, m, b) of the stack is row[t * st + m * sj]
+  const float2* row = props + (long long)i * si + b;
+  float2 u[N], un[N];
+#pragma unroll
+  for (int m = 0; m < N; ++m) {
+    u[m] = live ? __ldcs(row + m * sj) : zero;
+    un[m] = zero;
+  }
+  __syncthreads();
+
+  int cur = 0;
+  for (int t = 0; t < T; ++t) {
+    if (live && t + 1 < T) {
+      const float2* next = row + (long long)(t + 1) * st;
+#pragma unroll
+      for (int m = 0; m < N; ++m) un[m] = __ldcs(next + m * sj);
+    }
+    float ar = 0.f, ai = 0.f;
+#pragma unroll
+    for (int m = 0; m < N; ++m) {
+      const float2 y = ybuf[cur][m][l];
+      ar = ar + (u[m].x * y.x - u[m].y * y.y);
+      ai = ai + (u[m].x * y.y + u[m].y * y.x);
+    }
+    ybuf[cur ^ 1][i][l] = make_float2(ar, ai);
+    __syncthreads();
+    cur ^= 1;
+#pragma unroll
+    for (int m = 0; m < N; ++m) u[m] = un[m];
+  }
+  if (live) out[(size_t)i * B + b] = ybuf[cur][i][l];
+}
+
+template <int N>
+cudaError_t launch(const float2* props, const float2* y0, float2* out, int T, int B,
+                   long long st, long long si, long long sj, cudaStream_t stream) {
+  constexpr int LANES = N <= 16 ? 16 : 8;
+  chain_apply_kernel<N, LANES><<<(B + LANES - 1) / LANES, N * LANES, 0, stream>>>(
+      props, y0, out, T, B, st, si, sj);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// props: complex64 (T, n, n, B) with element strides st, si, sj over the first
+// three axes and 1 over the last; y0, out: contiguous complex64 (n, B).
+int chain_apply_launch(const void* props, const void* y0, void* out, int T, int n, int B,
+                       long long st, long long si, long long sj, void* stream) {
+  if (T < 1 || n < 1 || n > 32 || B < 1) return (int)cudaErrorInvalidValue;
+  const float2* p = (const float2*)props;
+  const float2* y = (const float2*)y0;
+  float2* o = (float2*)out;
+  cudaStream_t s = (cudaStream_t)stream;
+#define CHAIN_CASE(N) \
+  case N:             \
+    return (int)launch<N>(p, y, o, T, B, st, si, sj, s);
+  switch (n) {
+    CHAIN_CASE(1) CHAIN_CASE(2) CHAIN_CASE(3) CHAIN_CASE(4) CHAIN_CASE(5) CHAIN_CASE(6)
+    CHAIN_CASE(7) CHAIN_CASE(8) CHAIN_CASE(9) CHAIN_CASE(10) CHAIN_CASE(11) CHAIN_CASE(12)
+    CHAIN_CASE(13) CHAIN_CASE(14) CHAIN_CASE(15) CHAIN_CASE(16) CHAIN_CASE(17) CHAIN_CASE(18)
+    CHAIN_CASE(19) CHAIN_CASE(20) CHAIN_CASE(21) CHAIN_CASE(22) CHAIN_CASE(23) CHAIN_CASE(24)
+    CHAIN_CASE(25) CHAIN_CASE(26) CHAIN_CASE(27) CHAIN_CASE(28) CHAIN_CASE(29) CHAIN_CASE(30)
+    CHAIN_CASE(31) CHAIN_CASE(32)
+  }
+#undef CHAIN_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+const char* chain_apply_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+}  // extern "C"

@@ -17,9 +17,16 @@ import torch
 
 from .models import HamiltonianModel, LindbladModel
 from .models.rotating_frame import _enforce_anti_herm
-from .solvers import Solver
+from .perturbation import ArrayPolynomial
+from .solvers import DysonSolver, ExpansionModel, MagnusSolver, Solver
 
-__all__ = ["hamiltonian_model_from_arrays", "lindblad_model_from_arrays", "solver_from_arrays"]
+__all__ = [
+    "hamiltonian_model_from_arrays",
+    "lindblad_model_from_arrays",
+    "solver_from_arrays",
+    "expansion_model_from_arrays",
+    "perturbative_solver_from_arrays",
+]
 
 
 def _host(name: str, x, stack: bool = False):
@@ -136,3 +143,45 @@ def solver_from_arrays(
         device=device,
         dtype=dtype,
     )
+
+
+def expansion_model_from_arrays(
+    operators: np.ndarray,
+    frame_operator: Optional[np.ndarray],
+    dt: float,
+    carrier_freqs: np.ndarray,
+    chebyshev_orders: Sequence[int],
+    include_imag: Sequence[bool],
+    Udt: np.ndarray,
+    expansion_method: str,
+    poly_constant: Optional[np.ndarray],
+    poly_coefficients: np.ndarray,
+    poly_labels: Sequence[Sequence[int]],
+    device=None,
+    dtype: torch.dtype = torch.complex128,
+) -> ExpansionModel:
+    """The port's ``ExpansionModel`` around the precomputed expansion of a JAX
+    ``ExpansionModel``, without recomputing it: its ``operators``, its
+    ``rotating_frame.frame_operator``, ``dt``, the carrier frequencies,
+    Chebyshev orders and ``include_imag`` it was built with, ``Udt``, and its
+    ``expansion_polynomial`` (``constant_term``, ``array_coefficients``,
+    ``monomial_labels``)."""
+    polynomial = ArrayPolynomial(
+        constant_term=_host("poly_constant", poly_constant),
+        array_coefficients=_host("poly_coefficients", poly_coefficients),
+        monomial_labels=[tuple(int(i) for i in label) for label in poly_labels],
+    )
+    return ExpansionModel.from_parts(
+        expansion_method, dt, _host("Udt", Udt), _host("operators", operators, stack=True),
+        _host("carrier_freqs", np.asarray(carrier_freqs)), list(chebyshev_orders),
+        list(include_imag), _host("frame_operator", frame_operator), polynomial,
+        device=device, dtype=dtype,
+    )
+
+
+def perturbative_solver_from_arrays(*args, **kwargs):
+    """A ``DysonSolver`` or ``MagnusSolver`` (by ``expansion_method``) around
+    :func:`expansion_model_from_arrays` of the same arguments."""
+    model = expansion_model_from_arrays(*args, **kwargs)
+    cls = DysonSolver if model.expansion_method == "dyson" else MagnusSolver
+    return cls.from_model(model)

@@ -1,0 +1,293 @@
+r"""Batch-minor linear algebra for large sweeps of small matrices: CUDA kernels
+and plain versions.
+
+Counterpart of ``qiskit_dynamics_tpu/ops/batched_linalg.py``. Matrices are
+stored "structure of arrays" as ``(n, n, B)`` real and imaginary planes with
+the sweep batch minor, so neighbouring threads read neighbouring addresses.
+
+- :func:`matmul_bol`: ``C_b = A_b @ B_b``.
+- :func:`expm_taylor_bol`: fixed-order Horner Taylor ``expm`` with static
+  scaling and squaring.
+- :func:`expm_taylor_bol_bwd`: its vector-Jacobian product. It recomputes the
+  forward recursion, keeps every stage operand, and runs the reverse sweep
+  with ``A @ B``, ``A^H @ B`` and ``A @ B^H`` products.
+- :func:`expm_taylor_bol_ad`: ``expm_taylor_bol`` with gradients, kernel
+  forward and kernel backward.
+
+For CUDA tensors (float32) the three functions launch the three
+``__global__`` entry points of ``csrc/batched_linalg.cu``, which share one
+complex product routine; for CPU tensors they run the plain versions
+(:func:`matmul_bol_plain`, :func:`expm_taylor_bol_plain`,
+:func:`expm_taylor_bol_bwd_plain`) in the dtype they are given. The kernels
+fuse multiply-adds, so they agree with the plain versions to float32
+roundoff, not bit for bit.
+
+Planes may be contiguous or the ``real``/``imag`` views of one contiguous
+complex tensor (element stride 2): the kernels take either without a copy,
+and return the ``real``/``imag`` views of one complex64 tensor.
+
+Not carried from the JAX package: ``tile_b`` (the kernels mask their own
+last block, so callers pad nothing) and ``interpret``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+__all__ = [
+    "matmul_bol",
+    "matmul_bol_plain",
+    "expm_taylor_bol",
+    "expm_taylor_bol_plain",
+    "expm_taylor_bol_ad",
+    "expm_taylor_bol_bwd",
+    "expm_taylor_bol_bwd_plain",
+    "to_bol",
+    "from_bol",
+]
+
+MAX_N = 32  # the kernels keep whole matrices of a lane in shared memory
+
+
+def to_bol(A):
+    """(B, n, n) complex -> ((n, n, B) real, (n, n, B) imag)."""
+    A = torch.movedim(A, 0, -1)
+    return torch.real(A), torch.imag(A)
+
+
+def from_bol(Ar, Ai):
+    """((n, n, B), (n, n, B)) -> (B, n, n) complex."""
+    return torch.movedim(torch.complex(Ar, Ai), -1, 0)
+
+
+def _check(*planes):
+    first = planes[0]
+    if first.ndim != 3 or first.shape[0] != first.shape[1]:
+        raise ValueError(f"planes must be (n, n, B); got {tuple(first.shape)}")
+    for p in planes[1:]:
+        if p.shape != first.shape:
+            raise ValueError(
+                f"shape mismatch: planes {tuple(first.shape)} and {tuple(p.shape)}"
+            )
+        if p.dtype != first.dtype or p.device != first.device:
+            raise TypeError("the planes must share one real floating dtype and one device.")
+    if not first.is_floating_point():
+        raise TypeError("the planes must share one real floating dtype and one device.")
+
+
+def _check_expm(order: int, squarings: int):
+    if order < 1 or squarings < 0:
+        raise ValueError(f"order must be >= 1 and squarings >= 0; got {order}, {squarings}")
+
+
+def _route(name: str, first, kernel, plain):
+    """The kernel for a CUDA tensor, the plain version for a CPU tensor."""
+    if first.is_cuda:
+        return kernel()
+    if first.device.type == "cpu":
+        with torch.no_grad():
+            return plain()
+    raise RuntimeError(f"{name} has no path for device {first.device}.")
+
+
+# --------------------------------------------------------------------------
+# public functions
+# --------------------------------------------------------------------------
+def matmul_bol(Ar, Ai, Br, Bi):
+    """Batched complex matmul on (n, n, B) real/imag planes: returns
+    ``(Cr, Ci)`` with ``C_b = A_b @ B_b``."""
+    _check(Ar, Ai, Br, Bi)
+    return _route(
+        "matmul_bol", Ar,
+        lambda: _launch_kernel("matmul", (Ar, Ai, Br, Bi)),
+        lambda: matmul_bol_plain(Ar, Ai, Br, Bi),
+    )
+
+
+def expm_taylor_bol(Xr, Xi, order: int = 8, squarings: int = 0):
+    """Batched complex ``expm`` on (n, n, B) real/imag planes: scale by
+    ``2^-squarings``, Horner Taylor of fixed ``order``, ``squarings``
+    squarings. Returns ``(Pr, Pi)``. Not differentiable
+    (:func:`expm_taylor_bol_ad` is)."""
+    _check(Xr, Xi)
+    _check_expm(order, squarings)
+    return _route(
+        "expm_taylor_bol", Xr,
+        lambda: _launch_kernel("expm", (Xr, Xi), int(order), int(squarings)),
+        lambda: expm_taylor_bol_plain(Xr, Xi, order, squarings),
+    )
+
+
+def expm_taylor_bol_bwd(Xr, Xi, CTr, CTi, order: int = 8, squarings: int = 0):
+    """VJP of :func:`expm_taylor_bol`: the cotangents ``(GXr, GXi)`` of the
+    input planes for output cotangents ``(CTr, CTi)``."""
+    _check(Xr, Xi, CTr, CTi)
+    _check_expm(order, squarings)
+    return _route(
+        "expm_taylor_bol_bwd", Xr,
+        lambda: _launch_kernel("expm_bwd", (Xr, Xi, CTr, CTi), int(order), int(squarings)),
+        lambda: expm_taylor_bol_bwd_plain(Xr, Xi, CTr, CTi, order, squarings),
+    )
+
+
+# the number of times each CUDA kernel was launched (reset by callers that count)
+matmul_bol.launches = 0
+expm_taylor_bol.launches = 0
+expm_taylor_bol_bwd.launches = 0
+_WRAPPERS = {"matmul": matmul_bol, "expm": expm_taylor_bol, "expm_bwd": expm_taylor_bol_bwd}
+
+
+# --------------------------------------------------------------------------
+# the CUDA kernels
+# --------------------------------------------------------------------------
+def _kernel_lib():
+    from ..kernels import _build
+
+    lib = _build.load("batched_linalg")
+    pointer, integer = ctypes.c_void_p, ctypes.c_int
+    lib.matmul_bol_launch.argtypes = [pointer] * 6 + [integer] * 4 + [pointer]
+    lib.expm_bol_launch.argtypes = [pointer] * 4 + [integer] * 5 + [pointer]
+    lib.expm_bwd_bol_launch.argtypes = [pointer] * 7 + [integer] * 7 + [pointer]
+    lib.expm_bwd_bol_blocks.argtypes = [integer] * 2
+    lib.expm_bwd_bol_blocks.restype = integer
+    lib.expm_bwd_bol_scratch_floats.argtypes = [integer] * 4
+    lib.expm_bwd_bol_scratch_floats.restype = ctypes.c_longlong
+    for fn in (lib.matmul_bol_launch, lib.expm_bol_launch, lib.expm_bwd_bol_launch):
+        fn.restype = integer
+    lib.batched_linalg_error_string.argtypes = [integer]
+    lib.batched_linalg_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _element_stride(plane) -> int:
+    """1 for a contiguous (n, n, B) plane, 2 for the real or imaginary view of
+    a contiguous complex tensor, 0 for anything else."""
+    n, _, B = plane.shape
+    for es in (1, 2):
+        if plane.stride() == (n * B * es, B * es, es):
+            return es
+    return 0
+
+
+def _pair(pr, pi):
+    """A real/imag pair the kernels can read in place, and its element
+    stride; anything else is copied to contiguous planes first."""
+    es = _element_stride(pr)
+    if es == 0 or _element_stride(pi) != es:
+        return pr.contiguous(), pi.contiguous(), 1
+    return pr, pi, es
+
+
+def _launch_kernel(which: str, planes, order: int = 0, squarings: int = 0):
+    first = planes[0]
+    n, _, B = first.shape
+    if first.dtype != torch.float32:
+        raise TypeError(
+            "the CUDA batched_linalg kernels run float32 only; float64 on the card waits for "
+            "ROADMAP A10 (native FP64 engines)."
+        )
+    if n > MAX_N:
+        raise ValueError(f"the CUDA batched_linalg kernels take n <= {MAX_N}; got n={n}.")
+    out = torch.empty((n, n, B), dtype=torch.complex64, device=first.device)
+    out_planes = torch.view_as_real(out)
+    if B == 0:
+        return out_planes[..., 0], out_planes[..., 1]
+    pairs = [_pair(planes[i].detach(), planes[i + 1].detach()) for i in range(0, len(planes), 2)]
+    pointers = [x.data_ptr() for pair in pairs for x in pair[:2]]
+    strides = [pair[2] for pair in pairs]
+    lib = _kernel_lib()
+    with torch.cuda.device(first.device):
+        stream = torch.cuda.current_stream(first.device).cuda_stream
+        if which == "matmul":
+            code = lib.matmul_bol_launch(
+                *pointers, out.data_ptr(), out.data_ptr() + 4, n, B, *strides, stream)
+        elif which == "expm":
+            code = lib.expm_bol_launch(
+                *pointers, out.data_ptr(), out.data_ptr() + 4, n, B, order, squarings,
+                *strides, stream)
+        else:
+            blocks = int(lib.expm_bwd_bol_blocks(n, B))
+            scratch = torch.empty(
+                int(lib.expm_bwd_bol_scratch_floats(n, blocks, order, squarings)),
+                dtype=torch.float32, device=first.device)
+            code = lib.expm_bwd_bol_launch(
+                *pointers, out.data_ptr(), out.data_ptr() + 4, scratch.data_ptr(), n, B, order,
+                squarings, blocks, *strides, stream)
+    if code != 0:
+        raise RuntimeError(
+            f"batched_linalg {which} kernel launch failed: "
+            f"{lib.batched_linalg_error_string(code).decode()}"
+        )
+    _WRAPPERS[which].launches += 1
+    return out_planes[..., 0], out_planes[..., 1]
+
+
+# --------------------------------------------------------------------------
+# plain versions
+# --------------------------------------------------------------------------
+def _cmm(a, b):
+    """Per-lane complex product of (n, n, B) stacks."""
+    return torch.einsum("imb,mjb->ijb", a, b)
+
+
+def matmul_bol_plain(Ar, Ai, Br, Bi):
+    """Plain version of :func:`matmul_bol`."""
+    C = _cmm(torch.complex(Ar, Ai), torch.complex(Br, Bi))
+    return torch.real(C), torch.imag(C)
+
+
+def expm_taylor_bol_plain(Xr, Xi, order: int = 8, squarings: int = 0):
+    """Plain version of :func:`expm_taylor_bol`: the same recursion
+    (``t <- I + s t / k`` for ``k = order - 1 .. 1`` from ``t = I + s / order``,
+    then the squarings) in eager torch, differentiable."""
+    n = Xr.shape[0]
+    s = torch.complex(Xr, Xi) * (1.0 / (2.0**squarings))
+    eye = torch.eye(n, dtype=s.dtype, device=s.device)[:, :, None]
+    t = s / order + eye
+    for k in range(order - 1, 0, -1):
+        t = _cmm(s, t) * (1.0 / k) + eye
+    for _ in range(squarings):
+        t = _cmm(t, t)
+    return torch.real(t), torch.imag(t)
+
+
+def expm_taylor_bol_bwd_plain(Xr, Xi, CTr, CTi, order: int = 8, squarings: int = 0):
+    """Plain version of :func:`expm_taylor_bol_bwd`: autograd through
+    :func:`expm_taylor_bol_plain` at the same inputs."""
+    with torch.enable_grad():
+        xr = Xr.detach().requires_grad_(True)
+        xi = Xi.detach().requires_grad_(True)
+        outs = expm_taylor_bol_plain(xr, xi, order, squarings)
+        return torch.autograd.grad(outs, (xr, xi), (CTr, CTi))
+
+
+# --------------------------------------------------------------------------
+# the differentiable wrapper
+# --------------------------------------------------------------------------
+class _ExpmTaylorBol(torch.autograd.Function):
+    """Forward :func:`expm_taylor_bol`, backward :func:`expm_taylor_bol_bwd`:
+    a kernel in both directions on the card."""
+
+    @staticmethod
+    def forward(ctx, Xr, Xi, order, squarings):
+        ctx.order, ctx.squarings = order, squarings
+        ctx.save_for_backward(Xr, Xi)
+        return expm_taylor_bol(Xr, Xi, order, squarings)
+
+    @staticmethod
+    def backward(ctx, ct_r, ct_i):
+        Xr, Xi = ctx.saved_tensors
+        ct_r = torch.zeros_like(Xr) if ct_r is None else ct_r
+        ct_i = torch.zeros_like(Xi) if ct_i is None else ct_i
+        gr, gi = expm_taylor_bol_bwd(Xr, Xi, ct_r, ct_i, ctx.order, ctx.squarings)
+        return gr, gi, None, None
+
+
+def expm_taylor_bol_ad(Xr, Xi, order: int = 8, squarings: int = 0):
+    """Differentiable :func:`expm_taylor_bol`. This is what makes
+    ``MagnusSolver.solve_sweep`` differentiable end to end (the per-step
+    propagator is ``Udt @ expm(polynomial)``)."""
+    _check(Xr, Xi)
+    _check_expm(order, squarings)
+    return _ExpmTaylorBol.apply(Xr, Xi, int(order), int(squarings))

@@ -1,0 +1,381 @@
+r"""Dyson/Magnus perturbative solvers (Dysolve-style fast stepping).
+
+Counterpart of
+``qiskit_dynamics_tpu/solvers/perturbative_solvers/perturbative_solver.py``.
+
+Both solvers precompute an :class:`ExpansionModel` at construction, then solve
+by per-step polynomial evaluation. ``solve`` has two stepping routes: a host
+loop in complex128 numpy, and a batched route that builds every step's
+propagator with one polynomial evaluation (and one batched ``expm`` for
+Magnus) on the model's device and composes them with a log-depth scan.
+``solve_sweep`` runs a whole parameter sweep through the batch-minor kernels:
+the streamed propagator chain, and for Magnus the batched Taylor ``expm``.
+"""
+from __future__ import annotations
+
+from abc import ABC, abstractmethod
+from typing import Callable, List, Optional, Union
+
+import numpy as np
+import torch
+from scipy.linalg import expm as scipy_expm
+
+from ...exceptions import DynamicsError
+from ...ops.batched_linalg import expm_taylor_bol_ad
+from ...ops.chain_apply import chain_apply_bol_ad
+from ...parallel.scan import propagator_scan
+from ...signals import SignalList
+from ...unified import is_tensor, to_numpy, to_tensor
+from ..fused_sweep import _tree_map
+from ..results import OdeResult
+from ..solver_utils import setup_args_lists
+from .expansion_model import ExpansionModel
+
+__all__ = ["DysonSolver", "MagnusSolver"]
+
+_MAGNUS_EXPM_ORDER = 12  # Taylor order of the per-step expm in solve_sweep
+
+
+def _nested_ndim(x) -> int:
+    if isinstance(x, (list, tuple)):
+        return 1 + _nested_ndim(x[0])
+    if hasattr(x, "ndim"):
+        return x.ndim
+    return 0
+
+
+def _scalar_to_list(x, name):
+    ndim = _nested_ndim(x)
+    if ndim > 1:
+        raise DynamicsError(f"{name} must be either 0d or 1d.")
+    if ndim == 1:
+        return list(x), True
+    return [x], False
+
+
+def _y0_to_list(y0):
+    if isinstance(y0, list):
+        return y0, True
+    return [y0], False
+
+
+def _signals_to_list(signals):
+    if signals is None:
+        return [signals], False
+    if isinstance(signals, list) and isinstance(signals[0], (list, SignalList)):
+        return signals, True
+    if isinstance(signals, SignalList) or (
+        isinstance(signals, list) and not isinstance(signals[0], (list, SignalList))
+    ):
+        return [signals], False
+    raise DynamicsError("Signals specified in invalid format.")
+
+
+def _frame_ends(model, t0, n_steps):
+    """The frame maps at both ends of the solve, host complex128:
+    ``U0 = exp(t0 F)`` and ``Uf = exp(-(t0 + n_steps dt) F)``."""
+    dim = model.Udt.shape[0]
+    eye = np.eye(dim, dtype=complex)
+    frame = model.rotating_frame
+    U0 = to_numpy(frame.state_out_of_frame(t0, eye))
+    Uf = to_numpy(frame.state_into_frame(t0 + n_steps * model.dt, eye))
+    return U0, Uf
+
+
+def _real_dtype(dtype: torch.dtype) -> torch.dtype:
+    return torch.float32 if dtype == torch.complex64 else torch.float64
+
+
+def _perturbative_solve(single_step: Callable, model, signals, y0, t0, n_steps):
+    """Host-loop stepping, complex128 numpy."""
+    U0, Uf = _frame_ends(model, t0, n_steps)
+    coeffs = to_numpy(model.approximate_signals(signals, t0, n_steps))
+    y = U0 @ to_numpy(y0)
+    for k in range(n_steps):
+        y = single_step(coeffs[:, k], y)
+    return Uf @ y
+
+
+def _perturbative_solve_batched(step_propagators: Callable, model, signals, y0, t0, n_steps):
+    """Parallel stepping on the model's device: every step's propagator from
+    one batched evaluation, composed by a log-depth cumulative product."""
+    U0, Uf = _frame_ends(model, t0, n_steps)
+    device, dtype = model.device, model.dtype
+    coeffs = model.approximate_signals(signals, t0, n_steps).to(_real_dtype(dtype))
+    total = propagator_scan(step_propagators(coeffs))[-1]
+    U0 = torch.as_tensor(U0, device=device).to(dtype)
+    Uf = torch.as_tensor(Uf, device=device).to(dtype)
+    return Uf @ (total @ (U0 @ to_tensor(y0, device=device).to(dtype)))
+
+
+class _PerturbativeSolver(ABC):
+    """Base class: precomputed model + list-broadcasting ``solve``. The
+    constructor computes the expansion that ``_expansion_method`` names;
+    :meth:`from_model` wraps one that exists."""
+
+    _expansion_method: str
+
+    def __init__(
+        self,
+        operators,
+        rotating_frame,
+        dt: float,
+        carrier_freqs,
+        chebyshev_orders: List[int],
+        expansion_order: Optional[int] = None,
+        expansion_labels: Optional[List] = None,
+        integration_method: Optional[str] = None,
+        include_imag: Optional[List[bool]] = None,
+        device=None,
+        dtype: torch.dtype = torch.complex128,
+        **kwargs,
+    ):
+        self._model = ExpansionModel(
+            operators=operators,
+            rotating_frame=rotating_frame,
+            dt=dt,
+            carrier_freqs=carrier_freqs,
+            chebyshev_orders=chebyshev_orders,
+            expansion_method=self._expansion_method,
+            expansion_order=expansion_order,
+            expansion_labels=expansion_labels,
+            integration_method=integration_method,
+            include_imag=include_imag,
+            device=device,
+            dtype=dtype,
+            **kwargs,
+        )
+
+    @classmethod
+    def from_model(cls, model: ExpansionModel):
+        """The solver around a constructed ``model``, nothing recomputed."""
+        solver = cls.__new__(cls)
+        solver._model = model
+        return solver
+
+    @property
+    def model(self) -> ExpansionModel:
+        """Model object storing expansion details."""
+        return self._model
+
+    def solve(
+        self,
+        t0,
+        n_steps,
+        y0,
+        signals,
+        jax_control_flow: Optional[bool] = None,
+    ) -> Union[OdeResult, List[OdeResult]]:
+        """Solve for initial time(s), step count(s), state(s), and signal list(s).
+
+        Any argument may be a list to run a batch of simulations; lists must
+        have matching lengths (non-list args are broadcast).
+        ``jax_control_flow`` (the JAX package's name, kept so call sites port
+        unchanged) picks the batched route on the model's device; it defaults
+        to that route when ``y0`` is a tensor, and to the host loop otherwise.
+        """
+        if jax_control_flow is None:
+            jax_control_flow = is_tensor(y0) or (
+                isinstance(y0, list) and any(is_tensor(y) for y in y0)
+            )
+
+        args, multiple_sims = setup_args_lists(
+            args_list=[t0, n_steps, y0, signals],
+            args_names=["t0", "n_steps", "y0", "signals"],
+            args_to_list=[
+                lambda x: _scalar_to_list(x, "t0"),
+                lambda x: _scalar_to_list(x, "n_steps"),
+                _y0_to_list,
+                _signals_to_list,
+            ],
+        )
+
+        all_results = []
+        for t0_i, n_steps_i, y0_i, signals_i in zip(*args):
+            if len(signals_i) != len(self.model.operators):
+                raise DynamicsError(
+                    "Signals must be the same length as the operators in the model."
+                )
+            all_results.append(
+                self._solve(
+                    t0=t0_i,
+                    n_steps=n_steps_i,
+                    y0=y0_i,
+                    signals=signals_i,
+                    jax_control_flow=jax_control_flow,
+                )
+            )
+        return all_results if multiple_sims else all_results[0]
+
+    @abstractmethod
+    def _solve(self, t0, n_steps, y0, signals, jax_control_flow: bool = False) -> OdeResult:
+        ...
+
+    def solve_sweep(
+        self,
+        t0: float,
+        n_steps: int,
+        y0,
+        signals_fn: Callable,
+        params,
+        mesh=None,
+        expm_squarings: int = 1,
+        precision: str = "f32",
+        df_order: int = 2,
+        df_chunk_b: int = 2048,
+        df_devices=None,
+    ) -> torch.Tensor:
+        """Batched parameter-sweep solve through the streamed chain kernel.
+
+        Evaluates the expansion polynomial for EVERY (step, sweep member)
+        with one matrix product; for Magnus additionally exponentiates every
+        step with the batch-minor Taylor ``expm`` kernel over the flattened
+        ``T * B`` lanes; then applies the per-lane propagator chains with the
+        streamed kernel
+        (:func:`~qiskit_dynamics_tpu_torch.ops.chain_apply.chain_apply_bol`).
+        On the card the stepping runs in float32/complex64, the kernels'
+        type; on the CPU (the plain versions) in the model's ``dtype``. Signal
+        sampling is float64 either way. Differentiable in ``params``.
+
+        Args:
+            t0: shared initial time.
+            n_steps: number of steps of size ``model.dt``.
+            y0: shared initial state, shape (dim,).
+            signals_fn: maps one parameter tree to a signal list; it is
+                evaluated under ``torch.func.vmap``, so envelopes must be
+                written with torch functions of tensors.
+            params: batched parameters (dim 0 = sweep axis).
+            mesh: multi-device sharding; waits for ROADMAP A13 (raises).
+            expm_squarings: (Magnus only) scaling-and-squaring count of the
+                per-step Taylor-12 ``expm``. In the Dysolve regime the Magnus
+                polynomial's norm is well below 1, so Taylor-12 converges
+                unscaled and every squaring only amplifies float32 rounding;
+                the default 1 keeps a 2x margin on the convergence radius.
+                Raise it only for ``||Omega dt|| > 1``.
+            precision: ``"f32"``; ``"df32"`` (with ``df_order``,
+                ``df_chunk_b``, ``df_devices``) waits for ROADMAP A10, where
+                it becomes this path in native FP64.
+
+        Returns:
+            (B, dim) final states on the model's device (in the rotating
+            frame of the model, like ``solve``).
+        """
+        if precision == "df32":
+            raise NotImplementedError(
+                'solve_sweep(precision="df32") (with df_order, df_chunk_b, df_devices) waits '
+                "for ROADMAP A10 (native FP64 engines)."
+            )
+        if precision != "f32":
+            raise DynamicsError(f"Unknown precision {precision!r} (use 'f32' or 'df32').")
+        if mesh is not None:
+            raise NotImplementedError(
+                "solve_sweep(mesh=...) waits for ROADMAP A13 (multi-device, torch.distributed)."
+            )
+
+        model = self.model
+        poly = model.expansion_polynomial
+        device = model.device
+        dim = model.Udt.shape[0]
+        cdtype = torch.complex64 if device.type == "cuda" else model.dtype
+        rdtype = _real_dtype(cdtype)
+
+        params = _tree_map(lambda x: to_tensor(x, device=device), params)
+        coeffs = torch.func.vmap(
+            lambda p: model.approximate_signals(signals_fn(p), t0, n_steps)
+        )(params)                                            # (B, n_vars, T), float64
+        coeffs = torch.movedim(coeffs, 0, -1).to(rdtype)     # (n_vars, T, B)
+        T_steps, B = coeffs.shape[1], coeffs.shape[2]
+
+        monomials = poly.compute_monomials(coeffs)           # (M, T, B)
+        array_coeffs, constant = poly.tensors(device, cdtype)
+        n_terms = array_coeffs.shape[0]
+        # the complex coefficients against the real monomials as ONE real
+        # product: rows are the real plane then the imaginary plane; the
+        # constant term is the product's starting value
+        planes = torch.view_as_real(array_coeffs.reshape(n_terms, dim * dim))
+        planes = planes.permute(2, 1, 0).reshape(2 * dim * dim, n_terms)
+        monomials = monomials.reshape(n_terms, T_steps * B)
+        if constant is None:
+            lanes = planes @ monomials
+        else:
+            start = torch.view_as_real(constant.reshape(dim * dim)).T.reshape(-1, 1)
+            lanes = torch.addmm(start, planes, monomials)
+        lanes = lanes.reshape(2, dim, dim, T_steps * B)
+
+        if model.expansion_method == "magnus":
+            # per-step propagator = Udt @ expm(polynomial), exponentiated over
+            # the flattened (T * B) lanes, kernel forward and kernel backward
+            exp_r, exp_i = expm_taylor_bol_ad(
+                lanes[0], lanes[1], _MAGNUS_EXPM_ORDER, expm_squarings
+            )
+            Udt = torch.as_tensor(model.Udt, device=device).to(cdtype)
+            props = (Udt @ torch.complex(exp_r, exp_i).reshape(dim, -1)).reshape(
+                dim, dim, T_steps, B
+            )
+        else:
+            props = torch.complex(lanes[0], lanes[1]).reshape(dim, dim, T_steps, B)
+        props = torch.movedim(props, 2, 0)                   # (T, n, n, B), a view
+
+        # the frame maps come from the frame in complex128 and are cast last
+        U0, Uf = _frame_ends(model, t0, n_steps)
+        y0_frame = torch.as_tensor(U0 @ to_numpy(y0).astype(complex), device=device).to(cdtype)
+        yf = chain_apply_bol_ad(props, y0_frame[:, None].expand(dim, B))
+        return (torch.as_tensor(Uf, device=device).to(cdtype) @ yf).T
+
+
+class DysonSolver(_PerturbativeSolver):
+    r"""Fixed-step LMDE solver via a precompiled truncated Dyson series.
+
+    For generators :math:`G(t) = G_0 + \sum_j Re[f_j(t)e^{i2\pi\nu_j t}]G_j`
+    with anti-Hermitian :math:`G_0`: solves in the rotating frame of
+    :math:`G_0` with step :math:`\Delta t`, approximating each
+    frequency-shifted envelope by a Chebyshev interpolant per step and
+    evaluating the precomputed multivariable Dyson series polynomial
+    (Dysolve; arXiv:2210.11595). ``include_imag`` controls per-signal whether
+    the sine (imaginary-envelope) variables are included. ``device=None`` is
+    the CUDA device (raises without one).
+    """
+
+    _expansion_method = "dyson"
+
+    def _solve(self, t0, n_steps, y0, signals, jax_control_flow: bool = False) -> OdeResult:
+        model = self.model
+        if jax_control_flow:
+            def step_propagators(coeffs):
+                return torch.movedim(model.evaluate(coeffs), -1, 0)  # (T, n, n)
+
+            yf = _perturbative_solve_batched(step_propagators, model, signals, y0, t0, n_steps)
+        else:
+            def single_step(coeffs, y):
+                return model.evaluate(coeffs) @ y
+
+            yf = _perturbative_solve(single_step, model, signals, y0, t0, n_steps)
+        return OdeResult(t=[t0, t0 + n_steps * model.dt], y=[y0, yf])
+
+
+class MagnusSolver(_PerturbativeSolver):
+    """Fixed-step LMDE solver via a precompiled truncated Magnus expansion.
+
+    Same structure as :class:`DysonSolver` but per step evaluates
+    ``Udt @ expm(polynomial(c))``: ``scipy.linalg.expm`` in the host loop, one
+    batched ``torch.linalg.matrix_exp`` over all steps on the batched route
+    (``solve_sweep`` uses the Taylor ``expm`` kernel instead)."""
+
+    _expansion_method = "magnus"
+
+    def _solve(self, t0, n_steps, y0, signals, jax_control_flow: bool = False) -> OdeResult:
+        model = self.model
+        Udt = model.Udt
+        if jax_control_flow:
+            def step_propagators(coeffs):
+                omega = torch.movedim(model.evaluate(coeffs), -1, 0)  # (T, n, n)
+                Udt_t = torch.as_tensor(Udt, device=omega.device).to(omega.dtype)
+                return Udt_t @ torch.linalg.matrix_exp(omega)
+
+            yf = _perturbative_solve_batched(step_propagators, model, signals, y0, t0, n_steps)
+        else:
+            def single_step(coeffs, y):
+                return Udt @ scipy_expm(model.evaluate(coeffs)) @ y
+
+            yf = _perturbative_solve(single_step, model, signals, y0, t0, n_steps)
+        return OdeResult(t=[t0, t0 + n_steps * model.dt], y=[y0, yf])

@@ -37,7 +37,7 @@ def is_tensor(x) -> bool:
 def to_numpy(x) -> np.ndarray:
     """Host numpy copy of a tensor (any device); numpy view of anything else."""
     if is_tensor(x):
-        return x.detach().cpu().numpy()
+        return x.detach().cpu().resolve_conj().resolve_neg().numpy()
     return np.asarray(x)
 
 

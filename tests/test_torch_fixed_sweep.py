@@ -367,11 +367,50 @@ def test_kernel_source_constants():
         assert float(literal) == float(value)
 
 
+def _perturbative_entry_points(eye):
+    """The perturbative entry points, each returning its model (a tiny
+    first-order expansion where one is computed at all)."""
+    from qiskit_dynamics_tpu_torch.benchmarks import (
+        dyson_transmon_solver,
+        magnus_transmon_solver,
+    )
+
+    config = dict(operators=[-1j * eye], rotating_frame=np.array([1.0, 2.0]), dt=0.1,
+                  carrier_freqs=[1.0], chebyshev_orders=[0], expansion_order=1)
+
+    def load():
+        import tempfile
+
+        with tempfile.TemporaryDirectory() as folder:
+            np.savez(
+                folder + "/model.npz", expansion_method="dyson", dt=0.1, Udt=eye, operators=[eye],
+                carrier_freqs=[1.0], chebyshev_orders=[0], include_imag=[True],
+                frame_operator=-1j * eye, poly_constant=eye, poly_has_constant=True,
+                poly_coefficients=[eye], poly_labels=["0"],
+            )
+            return port.ExpansionModel.load(folder + "/model.npz")
+
+    return {
+        "ExpansionModel": lambda: port.ExpansionModel(**config),
+        "DysonSolver": lambda: port.DysonSolver(**config).model,
+        "MagnusSolver": lambda: port.MagnusSolver(**config).model,
+        "dyson_transmon_solver": lambda: dyson_transmon_solver(dim=2, expansion_order=1)[0].model,
+        "magnus_transmon_solver": lambda: magnus_transmon_solver(dim=2, expansion_order=1)[0].model,
+        "ExpansionModel.load": load,
+        "perturbative_solver_from_arrays": lambda: interop.perturbative_solver_from_arrays(
+            np.stack([eye]), -1j * eye, 0.1, np.array([1.0]), [0], [True], eye, "dyson", eye,
+            np.stack([eye]), [(0,)]
+        ).model,
+    }
+
+
 @pytest.mark.parametrize(
     "entry",
     ["cr_solver", "RotatingFrame", "HamiltonianModel", "LindbladModel", "Solver",
      "solver_from_arrays", "lindblad_model_from_arrays", "sweep_expm_magnus2",
-     "sweep_expm_magnus2_xla"],
+     "sweep_expm_magnus2_xla", "ExpansionModel", "DysonSolver", "MagnusSolver",
+     "dyson_transmon_solver", "magnus_transmon_solver", "ExpansionModel.load",
+     "perturbative_solver_from_arrays"],
 )
 def test_device_none_means_cuda(entry, problem):
     """``device=None`` is the CUDA device: without one the entry points raise
@@ -398,6 +437,7 @@ def test_device_none_means_cuda(entry, problem):
         "sweep_expm_magnus2_xla": lambda: sweep_expm_magnus2_xla(
             static, ops, omega, coef, y0, dt=DT
         ),
+        **_perturbative_entry_points(eye),
     }
     if torch.cuda.is_available():
         assert calls[entry]().device.type == "cuda"

@@ -1,0 +1,191 @@
+"""The CUDA kernels of the perturbative sweep against their plain versions, on the card.
+
+The streamed propagator chain (``csrc/chain_apply.cu``) and the batched
+product, Taylor expm and expm backward (``csrc/batched_linalg.cu``). These
+tests need an NVIDIA GPU with nvcc; without one they skip. On the card run
+them with ``python -m pytest tests/test_torch_perturbative_cuda.py -m cuda
+--noconftest``.
+
+The chain kernel is built without multiply-add contraction and its plain
+version repeats its rounded operations in order: they agree bit for bit. The
+batched_linalg kernels fuse multiply-adds and sum in their own order, so they
+agree with the plain versions (``torch.einsum``) to float32 roundoff: within
+1e-5 on unit-norm inputs. This file imports nothing of JAX.
+"""
+import numpy as np
+import pytest
+import torch
+
+from qiskit_dynamics_tpu_torch.ops import batched_linalg as bl
+from qiskit_dynamics_tpu_torch.ops import chain_apply as ca
+
+pytestmark = pytest.mark.cuda
+
+TOL = 1e-5
+DIMS = (2, 4, 10, 16, 32)
+BATCHES = (37, 1000)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def unitary_stack(gen, T, n, B):
+    """(T, n, n, B) complex64 near-unitary propagators: exp(-i H) to second
+    order for small Hermitian H, so a chain of them keeps the state's norm."""
+    h = gen.normal(size=(T, B, n, n)) + 1j * gen.normal(size=(T, B, n, n))
+    h = 0.3 / np.sqrt(n) * (h + np.conj(np.swapaxes(h, -1, -2))) / 2
+    u = np.eye(n) - 1j * h - h @ h / 2
+    return np.ascontiguousarray(np.transpose(u, (0, 2, 3, 1))).astype(np.complex64)
+
+
+def unit_planes(gen, n, B, device, count=2, scale=1.0):
+    """``count`` float32 (n, n, B) planes; each lane's complex matrix has
+    Frobenius norm ``scale``."""
+    x = gen.normal(size=(count, n, n, B))
+    pairs = x.reshape(count // 2, 2, n, n, B)
+    pairs = scale * pairs / np.sqrt((pairs**2).sum(axis=(1, 2, 3), keepdims=True))
+    return [torch.as_tensor(p, device=device).float() for p in pairs.reshape(count, n, n, B)]
+
+
+def max_diff(got, want):
+    return max(float((g - w).abs().max()) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("T", [1, 7])
+@pytest.mark.parametrize("B", BATCHES)
+@pytest.mark.parametrize("n", DIMS)
+def test_chain_kernel_matches_plain_bitwise(cuda, n, B, T):
+    gen = np.random.default_rng(100 * n + T)
+    props = torch.as_tensor(unitary_stack(gen, T, n, B), device=cuda)
+    y0 = gen.normal(size=(n, B)) + 1j * gen.normal(size=(n, B))
+    y0 = torch.as_tensor(y0 / np.linalg.norm(y0, axis=0), device=cuda).to(torch.complex64)
+    before = ca.chain_apply_bol.launches
+    out = ca.chain_apply_bol(props, y0)
+    plain = ca.chain_apply_bol_plain(props, y0)
+    torch.cuda.synchronize()
+    assert ca.chain_apply_bol.launches == before + 1
+    assert out.shape == (n, B)
+    assert torch.equal(out, plain)
+
+
+def test_chain_kernel_strided_stack(cuda):
+    """The (n, n, T, B) product of a matmul, viewed as (T, n, n, B), is read
+    in place."""
+    gen = np.random.default_rng(5)
+    T, n, B = 6, 10, 37
+    stack = torch.as_tensor(unitary_stack(gen, T, n, B), device=cuda)
+    view = torch.movedim(torch.movedim(stack, 0, 2).contiguous(), 2, 0)
+    assert not view.is_contiguous()
+    y0 = torch.as_tensor(np.ones((n, B)) / np.sqrt(n), device=cuda).to(torch.complex64)
+    assert torch.equal(ca.chain_apply_bol(view, y0), ca.chain_apply_bol(stack, y0))
+
+
+def test_chain_gradient_uses_eager_backward(cuda):
+    gen = np.random.default_rng(6)
+    T, n, B = 5, 4, 9
+    props = torch.as_tensor(unitary_stack(gen, T, n, B), device=cuda).requires_grad_(True)
+    y0 = torch.as_tensor(np.ones((n, B)) / 2.0, device=cuda).to(torch.complex64)
+    y0.requires_grad_(True)
+    (ca.chain_apply_bol_ad(props, y0)[1].abs() ** 2).sum().backward()
+    twin_p = props.detach().clone().requires_grad_(True)
+    twin_y = y0.detach().clone().requires_grad_(True)
+    y = twin_y
+    for t in range(T):
+        y = torch.einsum("ijb,jb->ib", twin_p[t], y)
+    (y[1].abs() ** 2).sum().backward()
+    assert float((props.grad - twin_p.grad).abs().max()) <= TOL
+    assert float((y0.grad - twin_y.grad).abs().max()) <= TOL
+
+
+def test_chain_kernel_rejects(cuda):
+    props = torch.zeros((2, 4, 4, 3), dtype=torch.complex64, device=cuda)
+    y0 = torch.zeros((4, 3), dtype=torch.complex64, device=cuda)
+    with pytest.raises(TypeError, match="A10"):
+        ca.chain_apply_bol(props.to(torch.complex128), y0.to(torch.complex128))
+    with pytest.raises(ValueError, match="at least one propagator"):
+        ca.chain_apply_bol(props[:0], y0)
+    big = torch.zeros((1, 33, 33, 2), dtype=torch.complex64, device=cuda)
+    with pytest.raises(ValueError, match="n <= 32"):
+        ca.chain_apply_bol(big, torch.zeros((33, 2), dtype=torch.complex64, device=cuda))
+
+
+@pytest.mark.parametrize("B", BATCHES)
+@pytest.mark.parametrize("n", DIMS)
+def test_matmul_kernel_matches_plain(cuda, n, B):
+    planes = unit_planes(np.random.default_rng(n), n, B, cuda, count=4)
+    before = bl.matmul_bol.launches
+    out = bl.matmul_bol(*planes)
+    plain = bl.matmul_bol_plain(*planes)
+    torch.cuda.synchronize()
+    assert bl.matmul_bol.launches == before + 1
+    assert out[0].shape == out[1].shape == (n, n, B)
+    assert max_diff(out, plain) <= TOL
+
+
+@pytest.mark.parametrize("order, squarings", [(8, 0), (8, 2), (12, 0), (12, 1), (12, 2)])
+@pytest.mark.parametrize("B", BATCHES)
+@pytest.mark.parametrize("n", DIMS)
+def test_expm_kernel_matches_plain(cuda, n, B, order, squarings):
+    planes = unit_planes(np.random.default_rng(n + order), n, B, cuda)
+    before = bl.expm_taylor_bol.launches
+    out = bl.expm_taylor_bol(*planes, order=order, squarings=squarings)
+    plain = bl.expm_taylor_bol_plain(*planes, order, squarings)
+    torch.cuda.synchronize()
+    assert bl.expm_taylor_bol.launches == before + 1
+    assert max_diff(out, plain) <= TOL
+
+
+@pytest.mark.parametrize("order, squarings", [(8, 0), (8, 2), (12, 0), (12, 1), (12, 2)])
+@pytest.mark.parametrize("B", BATCHES)
+@pytest.mark.parametrize("n", DIMS)
+def test_expm_bwd_kernel_matches_plain(cuda, n, B, order, squarings):
+    planes = unit_planes(np.random.default_rng(n + order + 50), n, B, cuda, count=4)
+    before = bl.expm_taylor_bol_bwd.launches
+    out = bl.expm_taylor_bol_bwd(*planes, order=order, squarings=squarings)
+    plain = bl.expm_taylor_bol_bwd_plain(*planes, order, squarings)
+    torch.cuda.synchronize()
+    assert bl.expm_taylor_bol_bwd.launches == before + 1
+    assert max_diff(out, plain) <= TOL
+
+
+def test_kernels_read_complex_views_in_place(cuda):
+    """The real/imag views of a complex tensor (element stride 2) give the
+    same result as contiguous planes."""
+    n, B = 10, 37
+    planes = unit_planes(np.random.default_rng(9), n, B, cuda, count=4)
+    x = torch.complex(planes[0], planes[1])
+    ct = torch.complex(planes[2], planes[3])
+    assert torch.equal(bl.expm_taylor_bol(x.real, x.imag, 12, 1)[0],
+                       bl.expm_taylor_bol(planes[0], planes[1], 12, 1)[0])
+    assert torch.equal(bl.expm_taylor_bol_bwd(x.real, x.imag, ct.real, ct.imag, 12, 1)[1],
+                       bl.expm_taylor_bol_bwd(*planes, 12, 1)[1])
+    assert torch.equal(bl.matmul_bol(x.real, x.imag, ct.real, ct.imag)[0],
+                       bl.matmul_bol(*planes)[0])
+
+
+def test_expm_ad_launches_both_kernels(cuda):
+    planes = [p.requires_grad_(True) for p in unit_planes(np.random.default_rng(3), 4, 9, cuda)]
+    fwd, bwd = bl.expm_taylor_bol.launches, bl.expm_taylor_bol_bwd.launches
+    pr, pi = bl.expm_taylor_bol_ad(*planes, 12, 1)
+    (pr.sum() + 2.0 * pi.sum()).backward()
+    assert bl.expm_taylor_bol.launches == fwd + 1
+    assert bl.expm_taylor_bol_bwd.launches == bwd + 1
+    twins = [p.detach().clone().requires_grad_(True) for p in planes]
+    tr, ti = bl.expm_taylor_bol_plain(*twins, 12, 1)
+    (tr.sum() + 2.0 * ti.sum()).backward()
+    assert max_diff([p.grad for p in planes], [t.grad for t in twins]) <= TOL
+
+
+def test_batched_linalg_kernels_reject(cuda):
+    planes = unit_planes(np.random.default_rng(1), 4, 3, cuda)
+    with pytest.raises(TypeError, match="A10"):
+        bl.expm_taylor_bol(*[p.double() for p in planes])
+    with pytest.raises(ValueError, match="shape mismatch"):
+        bl.matmul_bol(planes[0], planes[1], planes[0], planes[1][:, :, :2])
+    big = unit_planes(np.random.default_rng(2), 33, 2, cuda)
+    with pytest.raises(ValueError, match="n <= 32"):
+        bl.expm_taylor_bol(*big)

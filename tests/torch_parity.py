@@ -26,7 +26,7 @@ def random_hermitian(gen: np.random.Generator, n: int) -> np.ndarray:
 def to_np(x) -> np.ndarray:
     """numpy view of a torch tensor or anything array-like (JAX arrays included)."""
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
+        return x.detach().cpu().resolve_conj().resolve_neg().numpy()
     return np.asarray(x)
 
 
