@@ -11,13 +11,14 @@ raises and exits non-zero:
 1. device: a CUDA device is required; prints the card's name and power limit
    as ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
    reports them.
-2. build: compiles the six kernel sources, the lockstep-adaptive dopri5 sweep
-   (``qiskit_dynamics_tpu_torch/csrc/adaptive_sweep.cu``), the fixed-step
+2. build: compiles the seven kernel sources, the lockstep-adaptive dopri5
+   sweep (``qiskit_dynamics_tpu_torch/csrc/adaptive_sweep.cu``), the fixed-step
    Magnus-2 sweep (``csrc/sweep_magnus2.cu``), the member-major Magnus-2/3
    sweep (``csrc/member_sweep.cu``), the Horner expm action
    (``csrc/horner_apply.cu``), the streamed propagator chain
-   (``csrc/chain_apply.cu``) and the batched product, Taylor expm and expm
-   backward (``csrc/batched_linalg.cu``), one nvcc each, in parallel.
+   (``csrc/chain_apply.cu``), the batched product, Taylor expm and expm
+   backward (``csrc/batched_linalg.cu``) and the FP64 Magnus sweep
+   (``csrc/df_magnus_sweep.cu``), one nvcc each, in parallel.
 3. kernel against its eager twin on the card, in every mode (constant
    envelopes with padded lanes, envelope tables, eval times, budget
    exhaustion, stall guard) at n = 4, 9, 16, 27: final states within 1e-5,
@@ -93,6 +94,34 @@ raises and exits non-zero:
    on this row's propagators (consecutive steps composed pairwise, 1,024,000
    lanes) beside ``torch.einsum``.
 
+14. the FP64 kernels against their plain versions on the card, unit-norm
+   states: the Magnus sweep B8 at n = 2, 4, 9, 16, 27, 32, Magnus-2 and -3,
+   ``hermitian`` on and off, a uniform grid and a non-uniform one with
+   trajectory slots, 37 members in launches of 16 (a ragged last launch and
+   block), within 1e-12; the chain in complex128 bit for bit and the Taylor
+   expm in complex128 within 1e-12, at phase 11's shapes.
+15. the df32 CR rows at full width: ``cr_solver()`` (n = 16, frame diag(H0),
+   RWA) through ``Solver.solve_sweep(method="fused_magnus2",
+   precision="df32")`` over 10,000 amplitudes, T = 100, max_dt = 0.2 (500
+   steps of Magnus-3, Taylor order 12): B8 must launch; the complex states
+   at members 0, 4,999 and 9,999 within 1e-8 of the port's host DOP853
+   (atol = rtol = 1e-12); sims/s from a steady block; B8 alone and its plain
+   version at that shape. Then the Gaussian envelope (width T / 5), 2 probes
+   within 1e-8.
+16. the Chebyshev rows: ``solve_sweep(method="chebyshev")`` over the same
+   10,000 amplitudes (tol 1e-9, min_level 4, max_dt 0.2; phase 15's
+   references), and the 100 x 100 amplitude x detuning map (detuning
+   within +-0.002, min_level 3, max_level 7), 3 probes against DOP853(1e-12):
+   states within 1e-8, node counts, sims/s.
+17. the FP64 Dysolve rows: ``dyson_transmon_solver(chebyshev_order=2,
+   expansion_order=5)`` and ``magnus_transmon_solver`` at the order
+   ``MAGNUS_DF`` names, ``solve_sweep(precision="df32", df_chunk_b=1024)``
+   over phase 12's 2,048 Gaussian amplitudes and 1,000 steps: the complex
+   states at the probes within 1e-8 of phase 12's references; the
+   complex128 chain (and for Magnus the complex128 expm) kernels must launch
+   once per pass of 1,024 members, and are timed alone beside their plain
+   versions (and ``torch.linalg.matrix_exp``).
+
 Earlier paths keep their widths; only their depth may be cut if the whole run
 nears its time limit (none is cut today).
 
@@ -143,8 +172,23 @@ PT_KERNEL_TOL = 1e-5  # batched_linalg kernels vs torch.einsum: float32 roundoff
 PT_DIMS = (2, 4, 10, 16, 32)
 PT_BATCHES = (37, 1000)
 PT_EXPM_CASES = ((8, 0), (8, 2), (12, 0), (12, 1), (12, 2))
-# the card's peaks (H100 SXM data sheet): FP32 outside the tensor cores, HBM
+DF_DIMS = (2, 4, 9, 16, 27, 32)
+DF_MEMBERS, DF_STEPS = 37, 12  # phase 14's kernel checks: 37 members in launches of 16
+DF_KERNEL_TOL = 1e-12  # FP64 kernels vs their plain versions, unit-norm states
+DF_SWEEP = 10_000
+DF_MAX_DT = 0.2  # 500 steps of Magnus-3 over T_MAIN
+DF_TOL = 1e-8  # df32_*, cheb_*, cheb2d_*, dyson_df_* against DOP853(1e-12) (BARS.md)
+CHEB_TOL = 1e-9  # the certified interpolation error asked of the Chebyshev rows
+CHEB_MAP = 100  # the 2-d map is CHEB_MAP x CHEB_MAP amplitude x detuning points
+CHEB_DETUNING = 0.002
+DF_CHUNK = 1024  # members per pass of the FP64 Dysolve rows
+# the Magnus FP64 Dysolve row's expansion, chosen by scripts/torch_df_truncation.py
+MAGNUS_DF = dict(chebyshev_order=2, expansion_order=3)
+# the card's peaks (H100 SXM data sheet): FP32 and FP64 outside the tensor cores,
+# FP64 matrix products on the tensor cores (DMMA), HBM
 PEAK_F32 = 67e12
+PEAK_F64 = 34e12
+PEAK_F64_PRODUCTS = 67e12
 PEAK_BYTES = 3.35e12
 
 
@@ -304,10 +348,18 @@ def timed_ms(torch, fn):
     return (time.perf_counter() - start) * 1e3, out
 
 
-def bound(flops: float, nbytes: float):
-    """(bound_ms, bound_by): the larger of the FP32 time and the memory time."""
-    t_ops, t_bytes = flops / PEAK_F32, nbytes / PEAK_BYTES
+def bound(flops: float, nbytes: float, peak: float = PEAK_F32):
+    """(bound_ms, bound_by): the larger of the operations' time at ``peak``
+    (FP32 by default) and the memory time."""
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def bound_f64(product_flops: float, other_flops: float, nbytes: float):
+    """:func:`bound` for FP64 work: matrix products at the tensor cores' peak,
+    the rest (elementwise terms, builds, mat-vecs) at the FP64 peak outside
+    them."""
+    return bound(product_flops / PEAK_F64_PRODUCTS * PEAK_F64 + other_flops, nbytes, PEAK_F64)
 
 
 def b1_work(n: int, k: int, tile_b: int, accepted):
@@ -850,21 +902,22 @@ def phase_lindblad256(torch, hp, Signal, lindblad_two_transmon_solver):
 # --------------------------------------------------------------------------
 # phase 11: the perturbative kernels against their plain versions
 # --------------------------------------------------------------------------
-def unitary_stack(gen, T, n, B):
-    """(T, n, n, B) complex64 near-unitary propagators: exp(-i H) to second
-    order for small Hermitian H, so a chain of them keeps the state's norm."""
+def unitary_stack(gen, T, n, B, dtype=np.complex64):
+    """(T, n, n, B) near-unitary propagators: exp(-i H) to second order for
+    small Hermitian H, so a chain of them keeps the state's norm."""
     h = gen.normal(size=(T, B, n, n)) + 1j * gen.normal(size=(T, B, n, n))
     h = 0.3 / np.sqrt(n) * (h + np.conj(np.swapaxes(h, -1, -2))) / 2
     u = np.eye(n) - 1j * h - h @ h / 2
-    return np.ascontiguousarray(np.transpose(u, (0, 2, 3, 1))).astype(np.complex64)
+    return np.ascontiguousarray(np.transpose(u, (0, 2, 3, 1))).astype(dtype)
 
 
-def unit_planes(torch, gen, n, B, count=2):
-    """``count`` float32 (n, n, B) planes on the card; each lane's complex
-    matrix has Frobenius norm 1."""
+def unit_planes(torch, gen, n, B, count=2, dtype=None, device="cuda"):
+    """``count`` (n, n, B) planes on ``device``, float32 unless ``dtype``
+    says otherwise; each lane's complex matrix has Frobenius norm 1."""
     x = gen.normal(size=(count // 2, 2, n, n, B))
     x = x / np.sqrt((x**2).sum(axis=(1, 2, 3), keepdims=True))
-    return [torch.as_tensor(p, device="cuda").float() for p in x.reshape(count, n, n, B)]
+    return [torch.as_tensor(p, device=device).to(dtype or torch.float32)
+            for p in x.reshape(count, n, n, B)]
 
 
 def planes_diff(got, want):
@@ -1162,6 +1215,365 @@ def phase_perturbative_row(torch, phase, name, make_solver, Signal, ca, bl, refs
     return result
 
 
+# --------------------------------------------------------------------------
+# phase 14: the FP64 kernels against their plain versions
+# --------------------------------------------------------------------------
+def df_kernel_problem(torch, n, magnus_order, uniform, device):
+    """Seeded inputs of kernel B8 at state dimension n: anti-Hermitian
+    frame-basis operators (k = 2), an antisymmetric frame matrix, Gauss-node
+    coefficients, unit-norm states, a uniform or non-uniform grid."""
+    from qiskit_dynamics_tpu_torch.ops.df_sweep import MAGNUS_NODES
+
+    gen = np.random.default_rng(1000 * n + 10 * magnus_order + int(uniform))
+
+    def anti_hermitian(scale):
+        a = gen.normal(size=(n, n)) + 1j * gen.normal(size=(n, n))
+        return -1j * scale * (a + a.conj().T) / (2 * np.sqrt(n))
+
+    w = gen.uniform(0.0, 30.0, n)
+    y0 = gen.normal(size=(n, DF_MEMBERS)) + 1j * gen.normal(size=(n, DF_MEMBERS))
+    nodes = len(MAGNUS_NODES[magnus_order])
+    dt = 0.05 if uniform else 0.05 * (1.0 + 0.5 * np.sin(np.arange(DF_STEPS)))
+    args = (anti_hermitian(2.0), np.stack([anti_hermitian(1.0) for _ in range(2)]),
+            w[None, :] - w[:, None], gen.normal(size=(DF_STEPS, nodes, 2, DF_MEMBERS)),
+            torch.as_tensor(y0 / np.linalg.norm(y0, axis=0), device=device))
+    return args, dict(dt=dt, t0=3.0, magnus_order=magnus_order)
+
+
+def phase_df_kernels(torch, dfs, ca, bl, device="cuda"):
+    """B8 over n, Magnus order, hermitian, grid and trajectory slots, in
+    launches of 16 members (the last ragged); B5 and B6 in complex128 over the
+    perturbative dims. Returns the max diffs."""
+    worst = dict(df=0.0, chain=0.0, expm=0.0)
+    for n in DF_DIMS:
+        for magnus_order in (2, 3):
+            for hermitian in (False, True):
+                for uniform, slots in ((True, False), (False, True)):
+                    args, kwargs = df_kernel_problem(torch, n, magnus_order, uniform, device)
+                    kwargs["hermitian"] = hermitian
+                    if slots:
+                        kwargs["eval_slots"] = tuple(
+                            s // 4 if s % 4 == 3 else -1 for s in range(DF_STEPS))
+                    out = dfs.sweep_expm_magnus_df(*args, chunk_b=16, **kwargs)
+                    plain = dfs.sweep_expm_magnus_df_plain(dfs.prepare_df_inputs(*args, **kwargs))
+                    torch.cuda.synchronize()
+                    pairs = [(out[0], plain[0]), (out[1], plain[1])] if slots else [
+                        (out, plain[0])]
+                    for got, want in pairs:
+                        check(got.dtype == torch.complex128, f"B8 returned {got.dtype}")
+                        diff = float((got - want).abs().max())
+                        check(diff <= DF_KERNEL_TOL, f"B8 n={n} Magnus-{magnus_order} hermitian="
+                              f"{hermitian} slots={slots}: kernel vs plain {diff:.2e}")
+                        worst["df"] = max(worst["df"], diff)
+        log(f"  B8 n={n:2d}: Magnus-2/3 x hermitian x (uniform, non-uniform + slots) max diff "
+            f"{worst['df']:.2e} (running)")
+    for n in PT_DIMS:
+        for B in PT_BATCHES:
+            for T in (1, 7):
+                gen = np.random.default_rng(100 * n + T)
+                props = torch.as_tensor(unitary_stack(gen, T, n, B, np.complex128),
+                                        device=device)
+                y0 = gen.normal(size=(n, B)) + 1j * gen.normal(size=(n, B))
+                y0 = torch.as_tensor(y0 / np.linalg.norm(y0, axis=0), device=device)
+                out, plain = ca.chain_apply_bol(props, y0), ca.chain_apply_bol_plain(props, y0)
+                torch.cuda.synchronize()
+                check(out.dtype == torch.complex128 and torch.equal(out, plain),
+                      f"B5 complex128 n={n} B={B} T={T}: kernel and plain version differ by "
+                      f"{float((out - plain).abs().max()):.2e}, not bit for bit")
+            planes = unit_planes(torch, np.random.default_rng(n), n, B, dtype=torch.float64,
+                                 device=device)
+            for order, squarings in PT_EXPM_CASES:
+                got = bl.expm_taylor_bol(*planes, order, squarings)
+                diff = planes_diff(got, bl.expm_taylor_bol_plain(*planes, order, squarings))
+                check(got[0].dtype == torch.float64 and diff <= DF_KERNEL_TOL,
+                      f"B6 complex128 n={n} B={B} order={order} squarings={squarings}: kernel "
+                      f"vs plain {diff:.2e} > {DF_KERNEL_TOL}")
+                worst["expm"] = max(worst["expm"], diff)
+    return worst
+
+
+# --------------------------------------------------------------------------
+# phases 15 and 16: the df32 CR rows and the Chebyshev rows
+# --------------------------------------------------------------------------
+def df_cr_signals(torch, Signal, w1, gaussian=False):
+    """The CR df32 rows' signals (``bench.py:284-365``): a constant envelope
+    ``amp * AMP_SCALE``, or that times a Gaussian of width T / 5 at T / 2."""
+    if gaussian:
+        def signals_fn(amp):
+            return [Signal(lambda t: amp * AMP_SCALE * torch.exp(
+                -((t - T_MAIN / 2) ** 2) / (T_MAIN**2 / 12.5)), carrier_freq=w1)]
+    else:
+        def signals_fn(amp):
+            return [Signal(lambda t: amp * AMP_SCALE, carrier_freq=w1)]
+    return signals_fn
+
+
+def df_probes():
+    return np.linspace(0, DF_SWEEP - 1, PROBES).astype(int)
+
+
+def df_references(solver, signals_fn, params, y0):
+    """Final states of ``params`` (one signal-function argument each) by the
+    host DOP853 at atol = rtol = 1e-12, and seconds per member."""
+    start = time.perf_counter()
+    refs = [np.asarray(solver.solve(t_span=[0.0, T_MAIN], y0=y0, signals=signals_fn(p),
+                                    method="DOP853", atol=1e-12, rtol=1e-12).y[-1])
+            for p in params]
+    return np.stack(refs), (time.perf_counter() - start) / len(params)
+
+
+def df_flops_per_member_step(n: int, k: int, n_nodes: int, hermitian: bool, order: int):
+    """FP64 operations of one member-step of kernel B8 as ``(products,
+    other)``: the rule's complex matrix products (8 n^3 each), and the
+    generator builds, the rule's elementwise terms and the Horner mat-vecs."""
+    build = n_nodes * n * n * (4 * k + 6)
+    if n_nodes == 2:
+        products, elementwise = (1 if hermitian else 2), 8 * n * n
+    else:
+        products, elementwise = (3 if hermitian else 6), 34 * n * n
+    return products * 8 * n**3, build + elementwise + order * (8 * n * n + 4 * n)
+
+
+def df_bound(inputs):
+    n, k, T, B = inputs.n, inputs.k, inputs.steps, inputs.batch
+    nn = inputs.taus.shape[1]
+    products, other = df_flops_per_member_step(n, k, nn, inputs.hermitian, inputs.order)
+    nbytes = 8 * T * nn * k * B + 32 * n * B + 16 * (k + 1) * n * n + 8 * (n * n + 4 * T)
+    return bound_f64(products * T * B, other * T * B, nbytes)
+
+
+def phase_df32(torch, dfs, Signal, solver, w1, ref_solver, y0, device="cuda"):
+    """Phase 15: the CR df32 rows through ``Solver.solve_sweep(method=
+    "fused_magnus2", precision="df32")``, constant and Gaussian envelopes;
+    B8 alone and its plain version at the constant row's shape."""
+    amps = torch.linspace(0.25, 1.0, DF_SWEEP, dtype=torch.float64, device=device)
+    probes = df_probes()
+    rows = {}
+    for name, gaussian, n_probes in (("df32", False, PROBES), ("df32_gauss", True, 2)):
+        signals_fn = df_cr_signals(torch, Signal, w1, gaussian)
+
+        def sweep(signals_fn=signals_fn):
+            return solver.solve_sweep(signals_fn, amps, t_span=(0.0, T_MAIN), y0=y0,
+                                      method="fused_magnus2", max_dt=DF_MAX_DT, precision="df32")
+
+        sweep()  # warm-up
+        torch.cuda.synchronize()
+        dfs.sweep_expm_magnus_df.launches = 0
+        with Capture(dfs) as cap:
+            out = sweep()
+            torch.cuda.synchronize()
+        launches = dfs.sweep_expm_magnus_df.launches
+        check(launches > 0, f"the {name} row did not launch the df_magnus_sweep kernel")
+        check(out.shape == (DF_SWEEP, y0.shape[0]) and out.dtype == torch.complex128,
+              f"{name} output {tuple(out.shape)} {out.dtype}")
+        check(bool(torch.isfinite(torch.view_as_real(out)).all()), f"non-finite {name} states")
+        probe_amps = [torch.tensor(a) for a in amps.cpu().numpy()[probes[:n_probes]]]
+        refs, ref_s = df_references(ref_solver, signals_fn, probe_amps, y0)
+        err = float(np.max(np.abs(out[probes[:n_probes]].cpu().numpy() - refs)))
+        check(err <= DF_TOL, f"{name}_max_err {err:.2e} > {DF_TOL} against DOP853(1e-12)")
+        per_call, block_s, reps = steady_time(torch, sweep)
+        rows[name] = dict(launches=launches, max_err=err, sims_per_s=DF_SWEEP / per_call,
+                          per_call=per_call, block_s=block_s, reps=reps, ref_s=ref_s,
+                          refs=refs, inputs=cap.last)
+    inputs, chunk_b = rows["df32"].pop("inputs")
+    rows["df32_gauss"].pop("inputs")
+    kernel_ms = cuda_ms(torch, lambda: dfs._launch_kernel(inputs, chunk_b), reps=3)
+    kernel_out = dfs._launch_kernel(inputs, chunk_b)[0]
+    plain_ms, plain = timed_ms(torch, lambda: dfs.sweep_expm_magnus_df_plain(inputs, chunk_b))
+    diff = float((kernel_out - plain[0]).abs().max())
+    check(diff <= DF_KERNEL_TOL, f"df32 row: B8 vs plain {diff:.2e} > {DF_KERNEL_TOL}")
+    bound_ms, bound_by = df_bound(inputs)
+    row, gauss = rows["df32"], rows["df32_gauss"]
+    print(
+        f"phase 15 df32 CR rows: cr_solver n={inputs.n}, {DF_SWEEP} members, T={T_MAIN}, "
+        f"max_dt={DF_MAX_DT} ({inputs.steps} steps of Magnus-3, order {inputs.order}, "
+        f"hermitian={inputs.hermitian}): df32_sims_per_s {row['sims_per_s']:.1f} ({row['reps']} "
+        f"calls in {row['block_s']:.2f} s, {row['per_call'] * 1e3:.2f} ms/call = kernel "
+        f"{kernel_ms:.2f} ms + coefficients and glue {row['per_call'] * 1e3 - kernel_ms:.2f} ms), "
+        f"df32_max_err {row['max_err']:.2e} (<= {DF_TOL}, {PROBES} probes vs DOP853 1e-12 at "
+        f"{row['ref_s']:.2f} s/sim); B8 {kernel_ms:.3f} ms over {len(range(0, DF_SWEEP, chunk_b))} "
+        f"launches (bound {bound_ms:.3f} ms, {bound_by}), plain {plain_ms:.1f} ms, kernel vs "
+        f"plain {diff:.2e}; launches {row['launches']}; Gaussian envelope: df32_gauss_sims_per_s "
+        f"{gauss['sims_per_s']:.1f}, df32_gauss_max_err {gauss['max_err']:.2e} (2 probes); "
+        f"launches {gauss['launches']}",
+        flush=True,
+    )
+    return dict(launches=row["launches"], max_abs_err=diff, ms=kernel_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, rows=rows)
+
+
+def phase_chebyshev(torch, dfs, Signal, solver, w1, ref_solver, y0, df_refs, device="cuda"):
+    """Phase 16: the 1-d Chebyshev row over the df32 row's amplitudes (its
+    references reused) and the 2-d amplitude x detuning map."""
+    amps = torch.linspace(0.25, 1.0, DF_SWEEP, dtype=torch.float64, device=device)
+    kw = dict(t_span=(0.0, T_MAIN), y0=y0, method="chebyshev", tol=CHEB_TOL, max_dt=DF_MAX_DT,
+              full_output=True)
+    signals_fn = df_cr_signals(torch, Signal, w1)
+
+    def sweep():
+        return solver.solve_sweep(signals_fn, amps, min_level=4, **kw)
+
+    sweep()
+    torch.cuda.synchronize()
+    dfs.sweep_expm_magnus_df.launches = 0
+    out, info = sweep()
+    torch.cuda.synchronize()
+    launches = dfs.sweep_expm_magnus_df.launches
+    check(launches > 0 and info.converged, "the Chebyshev row did not run B8 or did not converge")
+    err = float(np.max(np.abs(out[df_probes()].cpu().numpy() - df_refs)))
+    check(err <= DF_TOL, f"cheb_max_err {err:.2e} > {DF_TOL} against DOP853(1e-12)")
+    per_call, block_s, reps = steady_time(torch, sweep)
+
+    def map_fn(pq):
+        amp, det = pq
+        return [Signal(lambda t: amp * AMP_SCALE, carrier_freq=w1 + det)]
+
+    map_amps = torch.linspace(0.25, 1.0, CHEB_MAP, dtype=torch.float64, device=device)
+    map_dets = torch.linspace(-CHEB_DETUNING, CHEB_DETUNING, CHEB_MAP, dtype=torch.float64,
+                              device=device)
+
+    def map_sweep():
+        return solver.solve_sweep(map_fn, (map_amps, map_dets), min_level=3, max_level=7, **kw)
+
+    map_sweep()
+    torch.cuda.synchronize()
+    dfs.sweep_expm_magnus_df.launches = 0
+    map_out, map_info = map_sweep()
+    torch.cuda.synchronize()
+    map_launches = dfs.sweep_expm_magnus_df.launches
+    check(map_launches > 0 and map_info.converged, "the 2-d map did not run B8 or converge")
+    check(map_out.shape == (CHEB_MAP, CHEB_MAP, y0.shape[0]), f"map shape {map_out.shape}")
+    corners = ((0, 0), (CHEB_MAP // 2, CHEB_MAP // 2), (CHEB_MAP - 1, CHEB_MAP - 1))
+    a_np, d_np = map_amps.cpu().numpy(), map_dets.cpu().numpy()
+    map_refs, map_ref_s = df_references(
+        ref_solver, map_fn,
+        [(torch.tensor(a_np[i]), torch.tensor(d_np[j])) for i, j in corners], y0)
+    map_err = float(np.max(np.abs(
+        np.stack([map_out[i, j].cpu().numpy() for i, j in corners]) - map_refs)))
+    check(map_err <= DF_TOL, f"cheb2d_max_err {map_err:.2e} > {DF_TOL} against DOP853(1e-12)")
+    map_call, map_block, map_reps = steady_time(torch, map_sweep)
+    result = dict(sims_per_s=DF_SWEEP / per_call, nodes=info.n_nodes, max_err=err,
+                  launches=launches, map_sims_per_s=CHEB_MAP**2 / map_call,
+                  map_nodes=map_info.n_nodes, map_max_err=map_err, map_launches=map_launches)
+    print(
+        f"phase 16 Chebyshev rows: 1-d over the {DF_SWEEP} df32 amplitudes, tol {CHEB_TOL}, "
+        f"min_level 4: cheb_sweep_sims_per_s {result['sims_per_s']:.1f} ({reps} calls in "
+        f"{block_s:.2f} s, {per_call * 1e3:.2f} ms/call), cheb_nodes {info.n_nodes} (levels "
+        f"{info.levels}, certified {info.est_error:.2e}), cheb_max_err {err:.2e} (<= {DF_TOL}, "
+        f"{PROBES} probes, phase 15's references), B8 launches {launches}; 2-d map "
+        f"{CHEB_MAP} x {CHEB_MAP} amplitude x detuning (+-{CHEB_DETUNING}): "
+        f"cheb2d_sims_per_s {result['map_sims_per_s']:.1f} ({map_reps} calls in "
+        f"{map_block:.2f} s), cheb2d_nodes {map_info.n_nodes} (levels {map_info.levels}, "
+        f"certified {map_info.est_error:.2e}), cheb2d_max_err {map_err:.2e} (<= {DF_TOL}, 3 probes "
+        f"vs DOP853 1e-12 at {map_ref_s:.2f} s/sim), B8 launches {map_launches}",
+        flush=True,
+    )
+    return result
+
+
+# --------------------------------------------------------------------------
+# phase 17: the FP64 Dysolve (Dyson and Magnus rows in complex128)
+# --------------------------------------------------------------------------
+def dysolve_df_sweep(torch, Signal, solver, nu, amps):
+    """The FP64 Dysolve sweep of ``solver`` over BASELINE config 4's
+    Gaussian amplitudes: ``solve_sweep(precision="df32")`` in chunks of
+    DF_CHUNK members."""
+    y0, signals_fn, _, _ = perturbative_sweep(torch, Signal, solver, nu, amps)
+
+    def sweep():
+        return solver.solve_sweep(0.0, PT_STEPS, y0, signals_fn, amps, precision="df32",
+                                  df_chunk_b=DF_CHUNK)
+
+    return sweep
+
+
+def phase_dysolve_df(torch, ca, bl, Signal, make_solver, name, refs, ref_s, device="cuda",
+                     **config):
+    """One FP64 Dysolve row at full width: the complex state at the three
+    probes against DOP853(1e-12) in the frame of G0 (phase 12's references),
+    the complex128 chain and (Magnus) expm kernels counted, and both timed
+    alone at the row's shapes beside their plain versions."""
+    start = time.perf_counter()
+    solver, nu = make_solver(device=device, **config)
+    build_s = time.perf_counter() - start
+    magnus = solver.model.expansion_method == "magnus"
+    terms = len(solver.model.expansion_polynomial.monomial_labels)
+    amps = torch.linspace(0.2, 1.0, PT_SWEEP, dtype=torch.float64, device=device)
+    sweep = dysolve_df_sweep(torch, Signal, solver, nu, amps)
+    sweep()
+    torch.cuda.synchronize()
+    ca.chain_apply_bol.launches = bl.expm_taylor_bol.launches = 0
+    with Capture(ca) as cap_chain, Capture(bl) as cap_linalg:
+        out = sweep()
+        torch.cuda.synchronize()
+    counts = [ca.chain_apply_bol.launches, bl.expm_taylor_bol.launches]
+    chunks = -(-PT_SWEEP // DF_CHUNK)
+    check(counts[0] == chunks, f"the {name} row launched the chain kernel {counts[0]} times, "
+          f"not {chunks}")
+    check(counts[1] == (chunks if magnus else 0), f"the {name} row launched the expm kernel "
+          f"{counts[1]} times")
+    check(out.shape == (PT_SWEEP, PT_DIM) and out.dtype == torch.complex128,
+          f"{name} output {tuple(out.shape)} {out.dtype}")
+    err = float(np.max(np.abs(out[perturbative_probes()].cpu().numpy() - refs)))
+    check(err <= DF_TOL, f"{name}_max_err {err:.2e} > {DF_TOL} against DOP853(1e-12)")
+    per_call, block_s, reps = steady_time(torch, sweep)
+
+    props, y0_cols = cap_chain.last
+    chain_ms = cuda_ms(torch, lambda: ca._launch_kernel(props, y0_cols), reps=5)
+    chain_out = ca._launch_kernel(props, y0_cols)
+    chain_plain_ms, chain_plain = timed_ms(torch, lambda: ca.chain_apply_bol_plain(props, y0_cols))
+    chain_diff = float((chain_out - chain_plain).abs().max())
+    check(torch.equal(chain_out, chain_plain), f"{name}: complex128 chain kernel and plain "
+          f"version differ by {chain_diff:.2e}")
+    T, n, _, B = props.shape
+    chain_bound = bound_f64(0.0, 8.0 * T * n * n * B, 16.0 * T * n * n * B + 32.0 * n * B)
+    result = dict(chain=dict(launches=counts[0], max_abs_err=chain_diff, ms=chain_ms,
+                             plain_ms=chain_plain_ms, bound_ms=chain_bound[0],
+                             bound_by=chain_bound[1], library_ms=None),
+                  sims_per_s=PT_SWEEP / per_call, max_err=err, terms=terms)
+    del props, y0_cols, chain_out, chain_plain
+    text = ""
+    if magnus:
+        which, planes, order, squarings = cap_linalg.last
+        lanes = planes[0].shape[2]
+        expm_ms = cuda_ms(torch, lambda: bl._launch_kernel(which, planes, order, squarings), reps=3)
+        expm_out = bl._launch_kernel(which, planes, order, squarings)
+        expm_plain_ms, expm_plain = timed_ms(
+            torch, lambda: bl.expm_taylor_bol_plain(*planes, order, squarings))
+        expm_diff = planes_diff(expm_out, expm_plain)
+        check(expm_diff <= DF_KERNEL_TOL,
+              f"{name}: complex128 expm kernel vs plain {expm_diff:.2e}")
+        del expm_plain
+        stack = bl.from_bol(*planes).contiguous()
+        torch.linalg.matrix_exp(stack[:1024])
+        library_ms, library = timed_ms(torch, lambda: torch.linalg.matrix_exp(stack))
+        library_diff = float((library - bl.from_bol(*expm_out)).abs().max())
+        del stack, library, expm_out
+        expm_bound = bound_f64((order - 1 + squarings) * 8.0 * n**3 * lanes, 0.0,
+                               32.0 * n * n * lanes)
+        result["expm"] = dict(launches=counts[1], max_abs_err=expm_diff, ms=expm_ms,
+                              plain_ms=expm_plain_ms, bound_ms=expm_bound[0],
+                              bound_by=expm_bound[1], library_ms=library_ms)
+        text = (f"complex128 expm kernel {expm_ms:.3f} ms over {lanes} lanes per pass (bound "
+                f"{expm_bound[0]:.3f} ms, {expm_bound[1]}), plain {expm_plain_ms:.1f} ms, "
+                f"torch.linalg.matrix_exp {library_ms:.1f} ms (differs by {library_diff:.2e}), "
+                f"kernel vs plain {expm_diff:.2e}; ")
+        del planes
+    torch.cuda.empty_cache()
+    print(
+        f"phase 17 {name} row: {type(solver).__name__} {config}, {terms} monomials "
+        f"(precompute {build_s:.1f} s), {PT_SWEEP} members x {PT_STEPS} steps in passes of "
+        f"{DF_CHUNK}: {name}_sims_per_s {PT_SWEEP / per_call:.1f} ({reps} calls in "
+        f"{block_s:.2f} s, {per_call * 1e3:.1f} ms/call); {name}_max_err {err:.2e} (complex "
+        f"state, <= {DF_TOL}, 3 probes vs DOP853 1e-12 at {ref_s:.2f} s/sim); complex128 chain "
+        f"kernel {chain_ms:.3f} ms per pass (bound {chain_bound[0]:.3f} ms, {chain_bound[1]}), "
+        f"plain {chain_plain_ms:.1f} ms, kernel vs plain {chain_diff:.2e} (bitwise equal); {text}"
+        f"launches [chain, expm] {counts}",
+        flush=True,
+    )
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -1188,15 +1600,16 @@ def main() -> int:
     from qiskit_dynamics_tpu_torch.ops import adaptive_sweep as asw
     from qiskit_dynamics_tpu_torch.ops import batched_linalg as bl
     from qiskit_dynamics_tpu_torch.ops import chain_apply as ca
+    from qiskit_dynamics_tpu_torch.ops import df_sweep as dfs
     from qiskit_dynamics_tpu_torch.ops import horner_pallas as hp
     from qiskit_dynamics_tpu_torch.ops import member_sweep as msw
     from qiskit_dynamics_tpu_torch.ops import sweep_solver as ssw
     from qiskit_dynamics_tpu_torch.solvers.fused_sweep import _expand_lanes, sweep_arguments
 
-    # phase 2: build the six kernel sources, one nvcc each, in parallel
+    # phase 2: build the seven kernel sources, one nvcc each, in parallel
     start = time.perf_counter()
     names = ("adaptive_sweep", "sweep_magnus2", "member_sweep", "horner_apply", "chain_apply",
-             "batched_linalg")
+             "batched_linalg", "df_magnus_sweep")
     with ThreadPoolExecutor(len(names)) as pool:
         for lib in pool.map(_build.load, names):
             check(lib is not None, "a kernel library did not load")
@@ -1348,6 +1761,28 @@ def main() -> int:
     magnus = phase_perturbative_row(torch, 13, "magnus", magnus_transmon_solver, Signal, ca, bl,
                                     pt_refs, pt_ref_s)
 
+    # phase 14: the FP64 kernels against their plain versions
+    start = time.perf_counter()
+    df_diffs = phase_df_kernels(torch, dfs, ca, bl)
+    print(f"phase 14 df_magnus_sweep, and chain_apply and expm_taylor_bol in complex128, vs plain: "
+          f"B8 n in {DF_DIMS} x Magnus-2/3 x hermitian on/off x (uniform dt; non-uniform dt with "
+          f"eval_slots), {DF_MEMBERS} members in launches of 16 (max diff {df_diffs['df']:.2e}); "
+          f"chain n in {PT_DIMS} x lanes in {PT_BATCHES} x 1 and 7 steps, bitwise equal; expm "
+          f"at (order, squarings) in {PT_EXPM_CASES} (max diff {df_diffs['expm']:.2e}); all <= "
+          f"{DF_KERNEL_TOL} in {time.perf_counter() - start:.1f} s", flush=True)
+
+    # phases 15 and 16: the df32 CR rows and the Chebyshev rows, on phase 4's
+    # model, one set of host references
+    df32 = phase_df32(torch, dfs, Signal, solver, w1, ref_solver, y0)
+    cheb = phase_chebyshev(torch, dfs, Signal, solver, w1, ref_solver, y0,
+                           df32["rows"]["df32"]["refs"])
+
+    # phase 17: the FP64 Dysolve rows, phase 12's references
+    dyson_df = phase_dysolve_df(torch, ca, bl, Signal, dyson_transmon_solver, "dyson_df",
+                                pt_refs, pt_ref_s, chebyshev_order=2, expansion_order=5)
+    magnus_df = phase_dysolve_df(torch, ca, bl, Signal, magnus_transmon_solver, "magnus_df",
+                                 pt_refs, pt_ref_s, **MAGNUS_DF)
+
     kernels = [{
         "name": "adaptive_sweep",
         "route": "cuda",
@@ -1411,6 +1846,9 @@ def main() -> int:
         "dyson_grad_sims_per_s": dyson["grad_sims_per_s"],
         "dyson_max_err": dyson["max_err"],
         "magnus_row": magnus["chain"],
+        "complex128": {**dyson_df["chain"], "dyson_df_sims_per_s": dyson_df["sims_per_s"],
+                       "dyson_df_max_err": dyson_df["max_err"],
+                       "magnus_df_row": magnus_df["chain"]},
     }, {
         "name": "expm_taylor_bol",
         "route": "cuda",
@@ -1420,6 +1858,8 @@ def main() -> int:
         "magnus_sims_per_s": magnus["sims_per_s"],
         "magnus_grad_sims_per_s": magnus["grad_sims_per_s"],
         "magnus_max_err": magnus["max_err"],
+        "complex128": {**magnus_df["expm"], "magnus_df_sims_per_s": magnus_df["sims_per_s"],
+                       "magnus_df_max_err": magnus_df["max_err"]},
     }, {
         "name": "expm_taylor_bol_bwd",
         "route": "cuda",
@@ -1433,6 +1873,24 @@ def main() -> int:
         "source": "qiskit_dynamics_tpu_torch/csrc/batched_linalg.cu",
         "replaces": "qiskit_dynamics_tpu/ops/batched_linalg.py:52",
         **magnus["matmul"],
+    }, {
+        "name": "df_magnus_sweep",
+        "route": "cuda",
+        "source": "qiskit_dynamics_tpu_torch/csrc/df_magnus_sweep.cu",
+        "replaces": "qiskit_dynamics_tpu/ops/df_sweep_pallas.py:78",
+        **{key: df32[key] for key in (
+            "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None,
+        "df32_sims_per_s": df32["rows"]["df32"]["sims_per_s"],
+        "df32_max_err": df32["rows"]["df32"]["max_err"],
+        "df32_gauss_sims_per_s": df32["rows"]["df32_gauss"]["sims_per_s"],
+        "df32_gauss_max_err": df32["rows"]["df32_gauss"]["max_err"],
+        "cheb_sweep_sims_per_s": cheb["sims_per_s"],
+        "cheb_nodes": cheb["nodes"],
+        "cheb_max_err": cheb["max_err"],
+        "cheb2d_sims_per_s": cheb["map_sims_per_s"],
+        "cheb2d_nodes": cheb["map_nodes"],
+        "cheb2d_max_err": cheb["map_max_err"],
     }]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -20,7 +20,10 @@ scipy host solves, ``Solver`` and ``benchmarks.cr_solver``; the large-dim
 engines (kernels B3, B4); the perturbation package (``ArrayPolynomial``,
 ``solve_lmde_perturbation``) and the perturbative solvers ``DysonSolver`` and
 ``MagnusSolver`` with their sweep on the streamed propagator chain (kernel
-B5) and the batched Taylor ``expm`` and its backward (kernels B6, B7, B10).
+B5) and the batched Taylor ``expm`` and its backward (kernels B6, B7, B10);
+the high-precision family in native FP64: ``fused_sweep_solve(precision="df32")``
+on kernel B8, the Chebyshev-interpolated sweeps, and the perturbative sweeps
+with ``precision="df32"`` on the complex128 kernels B5 and B6.
 ``ROADMAP.md`` lists what is still to come.
 """
 import torch as _torch
@@ -43,6 +46,8 @@ from .solvers import (
     OdeResult,
     fused_adaptive_sweep_solve,
     fused_sweep_solve,
+    interpolated_sweep_solve,
+    interpolated_sweep_solve_2d,
     DysonSolver,
     MagnusSolver,
     ExpansionModel,

@@ -6,11 +6,12 @@
 // (expm_taylor_bol) and _expm_bwd_kernel (expm_taylor_bol_bwd). Wrappers and
 // plain versions: qiskit_dynamics_tpu_torch/ops/batched_linalg.py.
 //
-// Layout. Matrices come as (n, n, L) float32 real and imaginary planes with the
-// lane (sweep member x time step) minor, n <= 32. A plane is addressed with an
+// Layout. Matrices come as (n, n, L) real and imaginary planes with the lane
+// (sweep member x time step) minor, n <= 32: float32, or float64 for the expm
+// (the complex128 instantiation serves the FP64 Magnus Dysolve). A plane is addressed with an
 // element stride es: 1 for a contiguous plane, 2 for the real or imaginary
-// view of a contiguous complex64 tensor, so neither form needs a copy.
-// Outputs are written as the two views of one complex64 tensor (stride 2).
+// view of a contiguous complex tensor, so neither form needs a copy.
+// Outputs are written as the two views of one complex tensor (stride 2).
 //
 // What they compute, per lane:
 // - matmul_bol_kernel:  C = A B.
@@ -32,7 +33,8 @@
 // for expm at 2,048,000 lanes of n = 10 against a 2.9 ms bound).
 //
 // Design. One block owns LB lanes (a power of two up to 32, the largest whose
-// matrices fit about half an SM's shared memory, so two blocks share an SM).
+// matrices fit about half an SM's shared memory, so two blocks share an SM;
+// in FP64 each matrix takes twice the bytes, so a block holds half the lanes).
 // Working matrices are float2 arrays [row][col][lane] in shared memory, lane
 // minor: a half-warp's 8-byte accesses fall on consecutive words. A thread
 // owns one TILE x TILE block of entries of its lane's matrices (TILE = 5
@@ -52,6 +54,12 @@
 // lane at n = 10) stays mostly in L2. Blocks of the backward kernel are
 // persistent and walk over the lane tiles. Ragged last lane tiles are masked
 // (dead lanes compute on zeros and store nothing).
+//
+// FP64 (expm only). The same code in double, with the same register tile:
+// twice the shared memory per lane, so a block holds half the lanes, and twice
+// the registers (the 5 x 5 tile of complex128 accumulators takes 100 of them).
+// Bound: operations, all of them matrix products, against the 67 TFLOP/s of
+// the FP64 tensor cores.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -67,6 +75,21 @@ constexpr size_t kSharedLimit = 232448;       // dynamic shared memory a block m
 constexpr int kOutStride = 2;                 // outputs are views of a complex64 tensor
 
 enum Op { kAB, kAhB, kABh };
+
+template <typename R> struct Complex;
+template <> struct Complex<float> { using type = float2; };
+template <> struct Complex<double> { using type = double2; };
+
+__device__ __forceinline__ float fma_r(float a, float b, float c) { return fmaf(a, b, c); }
+__device__ __forceinline__ double fma_r(double a, double b, double c) { return fma(a, b, c); }
+
+template <typename R>
+__device__ __forceinline__ typename Complex<R>::type cplx(R x, R y) {
+  typename Complex<R>::type c;
+  c.x = x;
+  c.y = y;
+  return c;
+}
 
 // What a thread owns: lane `lane` of the block's LB lanes (global lane b), and
 // the entries [i0, i0 + TILE) x [j0, j0 + TILE) of that lane's matrices.
@@ -93,16 +116,16 @@ __device__ __forceinline__ Own own_of(int n, int LB, long long L, long long tile
 }
 
 // The thread's tile of C (+)= coef * op(A) op(B) (+ I); C is neither A nor B.
-template <int OP, int TILE>
-__device__ __forceinline__ void cmm(const Own& t, const float2* __restrict__ A,
-                                    const float2* __restrict__ B, float2* __restrict__ C,
-                                    float coef, bool accumulate, bool add_identity) {
+template <int OP, int TILE, typename R, typename C2 = typename Complex<R>::type>
+__device__ __forceinline__ void cmm(const Own& t, const C2* __restrict__ A,
+                                    const C2* __restrict__ B, C2* __restrict__ C,
+                                    R coef, bool accumulate, bool add_identity) {
   const int n = t.n, LB = t.LB, last = t.n - 1;
-  float2 acc[TILE][TILE];
+  C2 acc[TILE][TILE];
 #pragma unroll
   for (int ii = 0; ii < TILE; ++ii)
 #pragma unroll
-    for (int jj = 0; jj < TILE; ++jj) acc[ii][jj] = make_float2(0.f, 0.f);
+    for (int jj = 0; jj < TILE; ++jj) acc[ii][jj] = cplx<R>(0, 0);
   int rows[TILE], cols[TILE];
 #pragma unroll
   for (int k = 0; k < TILE; ++k) {
@@ -111,7 +134,7 @@ __device__ __forceinline__ void cmm(const Own& t, const float2* __restrict__ A,
   }
 #pragma unroll 2
   for (int m = 0; m < n; ++m) {
-    float2 a[TILE], b[TILE];
+    C2 a[TILE], b[TILE];
 #pragma unroll
     for (int k = 0; k < TILE; ++k) {
       a[k] = OP == kAhB ? A[(m * n + rows[k]) * LB + t.lane] : A[(rows[k] * n + m) * LB + t.lane];
@@ -125,10 +148,10 @@ __device__ __forceinline__ void cmm(const Own& t, const float2* __restrict__ A,
       for (int jj = 0; jj < TILE; ++jj) {
         // four fused multiply-adds (written out: "acc += p - q" would cost a
         // multiply, a fused multiply-add and an add)
-        acc[ii][jj].x = fmaf(a[ii].x, b[jj].x, acc[ii][jj].x);
-        acc[ii][jj].x = fmaf(-a[ii].y, b[jj].y, acc[ii][jj].x);
-        acc[ii][jj].y = fmaf(a[ii].x, b[jj].y, acc[ii][jj].y);
-        acc[ii][jj].y = fmaf(a[ii].y, b[jj].x, acc[ii][jj].y);
+        acc[ii][jj].x = fma_r(a[ii].x, b[jj].x, acc[ii][jj].x);
+        acc[ii][jj].x = fma_r(-a[ii].y, b[jj].y, acc[ii][jj].x);
+        acc[ii][jj].y = fma_r(a[ii].x, b[jj].y, acc[ii][jj].y);
+        acc[ii][jj].y = fma_r(a[ii].y, b[jj].x, acc[ii][jj].y);
       }
   }
 #pragma unroll
@@ -137,13 +160,13 @@ __device__ __forceinline__ void cmm(const Own& t, const float2* __restrict__ A,
     for (int jj = 0; jj < TILE; ++jj) {
       const int i = t.i0 + ii, j = t.j0 + jj;
       if (i < n && j < n) {
-        float2 c = make_float2(acc[ii][jj].x * coef, acc[ii][jj].y * coef);
+        C2 c = cplx<R>(acc[ii][jj].x * coef, acc[ii][jj].y * coef);
         const int at = (i * n + j) * LB + t.lane;
         if (accumulate) {
           c.x += C[at].x;
           c.y += C[at].y;
         }
-        if (add_identity && i == j) c.x += 1.f;
+        if (add_identity && i == j) c.x += R(1);
         C[at] = c;
       }
     }
@@ -168,16 +191,15 @@ __device__ __forceinline__ void for_own(const Own& t, F f) {
 // registers, so all of a thread's entries are in flight at once (with 2 or 4
 // threads per lane a register-staged load leaves too few bytes in flight).
 // finish_loads() completes it for the issuing thread.
-template <int TILE>
-__device__ __forceinline__ void load_own(const Own& t, const float* pr, const float* pi, int es,
-                                         float2* M) {
+template <int TILE, typename R, typename C2 = typename Complex<R>::type>
+__device__ __forceinline__ void load_own(const Own& t, const R* pr, const R* pi, int es, C2* M) {
   for_own<TILE>(t, [&](int i, int j, int at) {
     if (t.live) {
       const long long g = ((long long)(i * t.n + j) * t.L + t.b) * es;
-      __pipeline_memcpy_async(&M[at].x, pr + g, sizeof(float));
-      __pipeline_memcpy_async(&M[at].y, pi + g, sizeof(float));
+      __pipeline_memcpy_async(&M[at].x, pr + g, sizeof(R));
+      __pipeline_memcpy_async(&M[at].y, pi + g, sizeof(R));
     } else {
-      M[at] = make_float2(0.f, 0.f);
+      M[at] = cplx<R>(0, 0);
     }
   });
 }
@@ -187,9 +209,8 @@ __device__ __forceinline__ void finish_loads() {
   __pipeline_wait_prior(0);
 }
 
-template <int TILE>
-__device__ __forceinline__ void store_own(const Own& t, const float2* M, float scale, float* pr,
-                                          float* pi) {
+template <int TILE, typename R, typename C2 = typename Complex<R>::type>
+__device__ __forceinline__ void store_own(const Own& t, const C2* M, R scale, R* pr, R* pi) {
   if (!t.live) return;
   for_own<TILE>(t, [&](int i, int j, int at) {
     const long long g = ((long long)(i * t.n + j) * t.L + t.b) * kOutStride;
@@ -199,20 +220,19 @@ __device__ __forceinline__ void store_own(const Own& t, const float2* M, float s
 }
 
 // The thread's tile of S = X * scale (in place) and T = S / order + I.
-template <int TILE>
-__device__ __forceinline__ void horner_start(const Own& t, float2* S, float scale, int order,
-                                             float2* T) {
+template <int TILE, typename R, typename C2 = typename Complex<R>::type>
+__device__ __forceinline__ void horner_start(const Own& t, C2* S, R scale, int order, C2* T) {
   for_own<TILE>(t, [&](int i, int j, int at) {
-    const float2 s = make_float2(S[at].x * scale, S[at].y * scale);
+    const C2 s = cplx<R>(S[at].x * scale, S[at].y * scale);
     S[at] = s;
-    float2 v = make_float2(s.x / order, s.y / order);
-    if (i == j) v.x += 1.f;
+    C2 v = cplx<R>(s.x / order, s.y / order);
+    if (i == j) v.x += R(1);
     T[at] = v;
   });
 }
 
-template <int TILE>
-__device__ __forceinline__ void copy_own(const Own& t, const float2* from, float2* to) {
+template <int TILE, typename C2>
+__device__ __forceinline__ void copy_own(const Own& t, const C2* from, C2* to) {
   for_own<TILE>(t, [&](int, int, int at) { to[at] = from[at]; });
 }
 
@@ -232,26 +252,28 @@ __global__ void matmul_bol_kernel(const float* ar, const float* ai, const float*
   store_own<TILE>(t, C, 1.f, cr, ci);
 }
 
-template <int TILE>
-__global__ void expm_bol_kernel(const float* xr, const float* xi, float* pr, float* pi, int n,
-                                long long L, int LB, int order, int squarings, int es) {
-  extern __shared__ float2 smem[];
+template <int TILE, typename R>
+__global__ void expm_bol_kernel(const R* xr, const R* xi, R* pr, R* pi, int n, long long L,
+                                int LB, int order, int squarings, int es) {
+  using C2 = typename Complex<R>::type;
+  extern __shared__ __align__(16) unsigned char smem_bytes[];
+  C2* smem = reinterpret_cast<C2*>(smem_bytes);
   const int mat = n * n * LB;
-  float2 *S = smem, *T = smem + mat, *W = smem + 2 * mat;
+  C2 *S = smem, *T = smem + mat, *W = smem + 2 * mat;
   const Own t = own_of<TILE>(n, LB, L, blockIdx.x);
   load_own<TILE>(t, xr, xi, es, S);
   finish_loads();
-  horner_start<TILE>(t, S, 1.f / (float)(1 << squarings), order, T);
+  horner_start<TILE>(t, S, R(1) / (R)(1 << squarings), order, T);
   __syncthreads();
   for (int k = order - 1; k >= 1; --k) {
-    cmm<kAB, TILE>(t, S, T, W, 1.f / k, false, true);
-    float2* swap = T; T = W; W = swap;
+    cmm<kAB, TILE>(t, S, T, W, R(1) / k, false, true);
+    C2* swap = T; T = W; W = swap;
   }
   for (int q = 0; q < squarings; ++q) {
-    cmm<kAB, TILE>(t, T, T, W, 1.f, false, false);
-    float2* swap = T; T = W; W = swap;
+    cmm<kAB, TILE>(t, T, T, W, R(1), false, false);
+    C2* swap = T; T = W; W = swap;
   }
-  store_own<TILE>(t, T, 1.f, pr, pi);
+  store_own<TILE>(t, T, R(1), pr, pi);
 }
 
 template <int TILE>
@@ -326,17 +348,20 @@ int threads_per_lane(int n) {
   return per_side * per_side;
 }
 
-// Lanes per block: the largest power of two up to 32 whose `mats` matrices fit
-// the shared-memory target and whose threads fit a block.
-int lanes_per_block(int n, int mats) {
+size_t shared_bytes(int n, int mats, int lb, size_t entry = sizeof(float2)) {
+  return (size_t)mats * n * n * lb * entry;
+}
+
+// Lanes per block: the largest power of two up to 32 whose `mats` matrices of
+// `entry`-byte complex entries fit the shared-memory target and whose threads
+// fit a block.
+int lanes_per_block(int n, int mats, size_t entry = sizeof(float2)) {
   int lb = 32;
-  while (lb > 1 && ((size_t)mats * n * n * lb * sizeof(float2) > kSharedTarget ||
+  while (lb > 1 && (shared_bytes(n, mats, lb, entry) > kSharedTarget ||
                     threads_per_lane(n) * lb > kMaxThreads))
     lb /= 2;
   return lb;
 }
-
-size_t shared_bytes(int n, int mats, int lb) { return (size_t)mats * n * n * lb * sizeof(float2); }
 
 template <typename Kernel>
 cudaError_t allow_shared(Kernel kernel, size_t bytes) {
@@ -361,15 +386,16 @@ cudaError_t launch_matmul(const float* ar, const float* ai, const float* br, con
   return cudaGetLastError();
 }
 
-template <int TILE>
-cudaError_t launch_expm(const float* xr, const float* xi, float* pr, float* pi, int n, int L,
+template <int TILE, typename R>
+cudaError_t launch_expm(const void* xr, const void* xi, void* pr, void* pi, int n, int L,
                         int order, int squarings, int es, cudaStream_t stream) {
-  const int lb = lanes_per_block(n, 3);
-  const size_t smem = shared_bytes(n, 3, lb);
-  cudaError_t err = allow_shared(expm_bol_kernel<TILE>, smem);
+  const size_t entry = sizeof(typename Complex<R>::type);
+  const int lb = lanes_per_block(n, 3, entry);
+  const size_t smem = shared_bytes(n, 3, lb, entry);
+  cudaError_t err = allow_shared(expm_bol_kernel<TILE, R>, smem);
   if (err != cudaSuccess) return err;
-  expm_bol_kernel<TILE><<<(L + lb - 1) / lb, threads_per_lane(n) * lb, smem, stream>>>(
-      xr, xi, pr, pi, n, L, lb, order, squarings, es);
+  expm_bol_kernel<TILE, R><<<(L + lb - 1) / lb, threads_per_lane(n) * lb, smem, stream>>>(
+      (const R*)xr, (const R*)xi, (R*)pr, (R*)pi, n, L, lb, order, squarings, es);
   return cudaGetLastError();
 }
 
@@ -398,13 +424,17 @@ int matmul_bol_launch(const void* ar, const void* ai, const void* br, const void
                      (float*)cr, (float*)ci, n, L, es_a, es_b, (cudaStream_t)stream);
 }
 
+// double_precision = 0: float32 planes and a complex64 output; 1: float64 and
+// complex128.
 int expm_bol_launch(const void* xr, const void* xi, void* pr, void* pi, int n, int L, int order,
-                    int squarings, int es, void* stream) {
+                    int squarings, int es, int double_precision, void* stream) {
   if (bad_shape(n, L) || order < 1 || squarings < 0 || squarings > 30)
     return (int)cudaErrorInvalidValue;
-  auto launch = tile_of(n) == 5 ? launch_expm<5> : launch_expm<4>;
-  return (int)launch((const float*)xr, (const float*)xi, (float*)pr, (float*)pi, n, L, order,
-                     squarings, es, (cudaStream_t)stream);
+  auto launch = double_precision ? (tile_of(n) == 5 ? launch_expm<5, double>
+                                                    : launch_expm<4, double>)
+                                 : (tile_of(n) == 5 ? launch_expm<5, float>
+                                                    : launch_expm<4, float>);
+  return (int)launch(xr, xi, pr, pi, n, L, order, squarings, es, (cudaStream_t)stream);
 }
 
 // Persistent blocks of the backward kernel: as many as are resident at once,

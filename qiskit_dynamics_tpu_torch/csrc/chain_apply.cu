@@ -4,8 +4,8 @@
 // (Pallas, launched by chain_apply_bol). Wrapper and plain version:
 // qiskit_dynamics_tpu_torch/ops/chain_apply.py.
 //
-// What it computes. For every lane b, from the complex64 propagator stack
-// U (T, n, n, B) and the states y0 (n, B):
+// What it computes. For every lane b, from the complex64 or complex128
+// propagator stack U (T, n, n, B) and the states y0 (n, B) of the same type:
 //   y_b <- U[T-1, :, :, b] ... U[1, :, :, b] U[0, :, :, b] y_b
 // with y_new[i] = sum_m U[t, i, m, b] y[m], the sum taken over m in order,
 // each term as (ur yr - ui yi, ur yi + ui yr). This file is built without
@@ -14,9 +14,10 @@
 // with it bit for bit.
 //
 // What bounds it on this card. Bytes: every propagator entry is read once
-// and used once (8 n^2 T B bytes: 1.64 GB at n = 10, T = 1,000, B = 2,048)
-// for 8 operations each. The time steps are sequential and there are only B
-// lanes, so what matters is how many bytes are in flight.
+// and used once (8 n^2 T B bytes in complex64: 1.64 GB at n = 10, T = 1,000,
+// B = 2,048; twice that in complex128) for 8 operations each. The time steps
+// are sequential and there are only B lanes, so what matters is how many
+// bytes are in flight.
 //
 // Design. The sequential grid axis of the TPU kernel is a loop inside the
 // block. A block owns LANES lanes (16, or 8 above n = 16) and has one thread
@@ -29,6 +30,11 @@
 // thread. The last block masks its ragged edge.
 //
 // n is a template argument (1 to 32) so that the row stays in registers.
+// The complex128 instantiation (the FP64 Dysolve of ops/df_chain.py's
+// counterpart) keeps the same design: a complex128 row of n = 16 already
+// takes 64 registers, so above n = 16 it loads each row when it is used
+// instead of one step ahead (two rows of 32 complex128 values would not fit
+// the 255 registers of a thread).
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -36,57 +42,82 @@
 
 namespace {
 
-template <int N, int LANES>
+template <typename R> struct Complex;
+template <> struct Complex<float> { using type = float2; };
+template <> struct Complex<double> { using type = double2; };
+
+// Rows of complex128 above n = 16 are loaded when used, not one step ahead.
+template <typename R, int N> struct Prefetch {
+  static constexpr bool value = sizeof(R) == 4 || N <= 16;
+};
+
+template <typename R, int N, int LANES>
 __global__ void __launch_bounds__(N * LANES)
-chain_apply_kernel(const float2* __restrict__ props, const float2* __restrict__ y0,
-                   float2* __restrict__ out, int T, int B, long long st, long long si,
-                   long long sj) {
-  __shared__ float2 ybuf[2][N][LANES];
+chain_apply_kernel(const typename Complex<R>::type* __restrict__ props,
+                   const typename Complex<R>::type* __restrict__ y0,
+                   typename Complex<R>::type* __restrict__ out, int T, int B, long long st,
+                   long long si, long long sj) {
+  using C = typename Complex<R>::type;
+  constexpr bool kAhead = Prefetch<R, N>::value;
+  constexpr int kNext = kAhead ? N : 1;
+  __shared__ C ybuf[2][N][LANES];
   const int l = threadIdx.x % LANES, i = threadIdx.x / LANES;
   const int b = blockIdx.x * LANES + l;
   const bool live = b < B;
-  const float2 zero = make_float2(0.f, 0.f);
+  C zero;
+  zero.x = 0;
+  zero.y = 0;
 
   ybuf[0][i][l] = live ? y0[(size_t)i * B + b] : zero;
   // entry (t, i, m, b) of the stack is row[t * st + m * sj]
-  const float2* row = props + (long long)i * si + b;
-  float2 u[N], un[N];
+  const C* row = props + (long long)i * si + b;
+  C u[N], un[kNext];
 #pragma unroll
-  for (int m = 0; m < N; ++m) {
-    u[m] = live ? __ldcs(row + m * sj) : zero;
-    un[m] = zero;
-  }
+  for (int m = 0; m < N; ++m) u[m] = live ? __ldcs(row + m * sj) : zero;
+#pragma unroll
+  for (int m = 0; m < kNext; ++m) un[m] = zero;
   __syncthreads();
 
   int cur = 0;
   for (int t = 0; t < T; ++t) {
-    if (live && t + 1 < T) {
-      const float2* next = row + (long long)(t + 1) * st;
+    if (kAhead && live && t + 1 < T) {
+      const C* next = row + (long long)(t + 1) * st;
 #pragma unroll
-      for (int m = 0; m < N; ++m) un[m] = __ldcs(next + m * sj);
+      for (int m = 0; m < kNext; ++m) un[m] = __ldcs(next + m * sj);
     }
-    float ar = 0.f, ai = 0.f;
+    if (!kAhead && live && t > 0) {
+      const C* now = row + (long long)t * st;
+#pragma unroll
+      for (int m = 0; m < N; ++m) u[m] = __ldcs(now + m * sj);
+    }
+    R ar = 0, ai = 0;
 #pragma unroll
     for (int m = 0; m < N; ++m) {
-      const float2 y = ybuf[cur][m][l];
+      const C y = ybuf[cur][m][l];
       ar = ar + (u[m].x * y.x - u[m].y * y.y);
       ai = ai + (u[m].x * y.y + u[m].y * y.x);
     }
-    ybuf[cur ^ 1][i][l] = make_float2(ar, ai);
+    C v;
+    v.x = ar;
+    v.y = ai;
+    ybuf[cur ^ 1][i][l] = v;
     __syncthreads();
     cur ^= 1;
+    if (kAhead) {
 #pragma unroll
-    for (int m = 0; m < N; ++m) u[m] = un[m];
+      for (int m = 0; m < kNext; ++m) u[m] = un[m];
+    }
   }
   if (live) out[(size_t)i * B + b] = ybuf[cur][i][l];
 }
 
-template <int N>
-cudaError_t launch(const float2* props, const float2* y0, float2* out, int T, int B,
-                   long long st, long long si, long long sj, cudaStream_t stream) {
+template <typename R, int N>
+cudaError_t launch(const void* props, const void* y0, void* out, int T, int B, long long st,
+                   long long si, long long sj, cudaStream_t stream) {
+  using C = typename Complex<R>::type;
   constexpr int LANES = N <= 16 ? 16 : 8;
-  chain_apply_kernel<N, LANES><<<(B + LANES - 1) / LANES, N * LANES, 0, stream>>>(
-      props, y0, out, T, B, st, si, sj);
+  chain_apply_kernel<R, N, LANES><<<(B + LANES - 1) / LANES, N * LANES, 0, stream>>>(
+      (const C*)props, (const C*)y0, (C*)out, T, B, st, si, sj);
   return cudaGetLastError();
 }
 
@@ -94,18 +125,21 @@ cudaError_t launch(const float2* props, const float2* y0, float2* out, int T, in
 
 extern "C" {
 
-// props: complex64 (T, n, n, B) with element strides st, si, sj over the first
-// three axes and 1 over the last; y0, out: contiguous complex64 (n, B).
+// props: complex64 (double_precision = 0) or complex128 (1) (T, n, n, B) with
+// element strides st, si, sj over the first three axes and 1 over the last;
+// y0, out: contiguous (n, B) of the same type.
 int chain_apply_launch(const void* props, const void* y0, void* out, int T, int n, int B,
-                       long long st, long long si, long long sj, void* stream) {
+                       long long st, long long si, long long sj, int double_precision,
+                       void* stream) {
   if (T < 1 || n < 1 || n > 32 || B < 1) return (int)cudaErrorInvalidValue;
-  const float2* p = (const float2*)props;
-  const float2* y = (const float2*)y0;
-  float2* o = (float2*)out;
+  const void* p = props;
+  const void* y = y0;
+  void* o = out;
   cudaStream_t s = (cudaStream_t)stream;
-#define CHAIN_CASE(N) \
-  case N:             \
-    return (int)launch<N>(p, y, o, T, B, st, si, sj, s);
+#define CHAIN_CASE(N)                                                     \
+  case N:                                                                 \
+    return (int)(double_precision ? launch<double, N>(p, y, o, T, B, st, si, sj, s) \
+                                  : launch<float, N>(p, y, o, T, B, st, si, sj, s));
   switch (n) {
     CHAIN_CASE(1) CHAIN_CASE(2) CHAIN_CASE(3) CHAIN_CASE(4) CHAIN_CASE(5) CHAIN_CASE(6)
     CHAIN_CASE(7) CHAIN_CASE(8) CHAIN_CASE(9) CHAIN_CASE(10) CHAIN_CASE(11) CHAIN_CASE(12)

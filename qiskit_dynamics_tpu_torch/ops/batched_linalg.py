@@ -14,9 +14,10 @@ the sweep batch minor, so neighbouring threads read neighbouring addresses.
 - :func:`expm_taylor_bol_ad`: ``expm_taylor_bol`` with gradients, kernel
   forward and kernel backward.
 
-For CUDA tensors (float32) the three functions launch the three
-``__global__`` entry points of ``csrc/batched_linalg.cu``, which share one
-complex product routine; for CPU tensors they run the plain versions
+For CUDA tensors (float32; float64 too for :func:`expm_taylor_bol`, the
+per-step ``expm`` of the FP64 Magnus Dysolve) the three functions launch the
+three ``__global__`` entry points of ``csrc/batched_linalg.cu``, which share
+one complex product routine; for CPU tensors they run the plain versions
 (:func:`matmul_bol_plain`, :func:`expm_taylor_bol_plain`,
 :func:`expm_taylor_bol_bwd_plain`) in the dtype they are given. The kernels
 fuse multiply-adds, so they agree with the plain versions to float32
@@ -24,7 +25,7 @@ roundoff, not bit for bit.
 
 Planes may be contiguous or the ``real``/``imag`` views of one contiguous
 complex tensor (element stride 2): the kernels take either without a copy,
-and return the ``real``/``imag`` views of one complex64 tensor.
+and return the ``real``/``imag`` views of one complex64 (complex128) tensor.
 
 Not carried from the JAX package: ``tile_b`` (the kernels mask their own
 last block, so callers pad nothing) and ``interpret``.
@@ -147,7 +148,7 @@ def _kernel_lib():
     lib = _build.load("batched_linalg")
     pointer, integer = ctypes.c_void_p, ctypes.c_int
     lib.matmul_bol_launch.argtypes = [pointer] * 6 + [integer] * 4 + [pointer]
-    lib.expm_bol_launch.argtypes = [pointer] * 4 + [integer] * 5 + [pointer]
+    lib.expm_bol_launch.argtypes = [pointer] * 4 + [integer] * 6 + [pointer]
     lib.expm_bwd_bol_launch.argtypes = [pointer] * 7 + [integer] * 7 + [pointer]
     lib.expm_bwd_bol_blocks.argtypes = [integer] * 2
     lib.expm_bwd_bol_blocks.restype = integer
@@ -182,14 +183,17 @@ def _pair(pr, pi):
 def _launch_kernel(which: str, planes, order: int = 0, squarings: int = 0):
     first = planes[0]
     n, _, B = first.shape
-    if first.dtype != torch.float32:
+    double = first.dtype == torch.float64
+    if not (first.dtype == torch.float32 or (double and which == "expm")):
         raise TypeError(
-            "the CUDA batched_linalg kernels run float32 only; float64 on the card waits for "
-            "ROADMAP A10 (native FP64 engines)."
+            f"the CUDA batched_linalg {which} kernel runs float32 only (float64 is the expm's "
+            "alone, for the FP64 Magnus Dysolve, which has no gradient); got "
+            f"{first.dtype}."
         )
     if n > MAX_N:
         raise ValueError(f"the CUDA batched_linalg kernels take n <= {MAX_N}; got n={n}.")
-    out = torch.empty((n, n, B), dtype=torch.complex64, device=first.device)
+    out = torch.empty((n, n, B), dtype=torch.complex128 if double else torch.complex64,
+                      device=first.device)
     out_planes = torch.view_as_real(out)
     if B == 0:
         return out_planes[..., 0], out_planes[..., 1]
@@ -204,8 +208,8 @@ def _launch_kernel(which: str, planes, order: int = 0, squarings: int = 0):
                 *pointers, out.data_ptr(), out.data_ptr() + 4, n, B, *strides, stream)
         elif which == "expm":
             code = lib.expm_bol_launch(
-                *pointers, out.data_ptr(), out.data_ptr() + 4, n, B, order, squarings,
-                *strides, stream)
+                *pointers, out.data_ptr(), out.data_ptr() + out.element_size() // 2, n, B, order,
+                squarings, *strides, int(double), stream)
         else:
             blocks = int(lib.expm_bwd_bol_blocks(n, B))
             scratch = torch.empty(

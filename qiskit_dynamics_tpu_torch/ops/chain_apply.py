@@ -6,13 +6,14 @@ of per-step, per-lane propagators to a state:
 
 The propagator stack is ``(T, n, n, B)`` complex with the sweep batch minor.
 The kernel (``csrc/chain_apply.cu``) reads every propagator entry once,
-straight from the complex64 tensor it is given (any strides over the first
+straight from the complex64 or complex128 tensor it is given (any strides over the first
 three axes, so the ``(n, n, T, B)`` product of a matmul needs no copy), and
 keeps a lane's state in shared memory for the whole time loop. One launch
 replaces ``T`` sequential batched mat-vecs.
 
-- :func:`chain_apply_bol`: the kernel for CUDA tensors (complex64; raises for
-  what it cannot launch), the plain version for CPU tensors.
+- :func:`chain_apply_bol`: the kernel for CUDA tensors (complex64, or
+  complex128 for the FP64 Dysolve; raises for what it cannot launch), the
+  plain version for CPU tensors.
 - :func:`chain_apply_bol_plain`: the kernel's arithmetic on real and
   imaginary planes, in the same order (the kernel is built without
   multiply-add contraction, so the two agree bit for bit), in the dtype it is
@@ -76,7 +77,8 @@ def _kernel_lib():
 
     lib = _build.load("chain_apply")
     lib.chain_apply_launch.argtypes = (
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_longlong] * 3 + [ctypes.c_void_p]
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_longlong] * 3 + [ctypes.c_int]
+        + [ctypes.c_void_p]
     )
     lib.chain_apply_launch.restype = ctypes.c_int
     lib.chain_apply_error_string.argtypes = [ctypes.c_int]
@@ -86,10 +88,10 @@ def _kernel_lib():
 
 def _launch_kernel(props, y0):
     T, n, _, B = props.shape
-    if props.dtype != torch.complex64 or y0.dtype != torch.complex64:
+    if props.dtype not in (torch.complex64, torch.complex128) or y0.dtype != props.dtype:
         raise TypeError(
-            "the CUDA chain_apply kernel runs complex64 only; complex128 on the card waits "
-            "for ROADMAP A10 (native FP64 engines)."
+            "the CUDA chain_apply kernel runs complex64 or complex128, props and y0 of one "
+            f"type; got {props.dtype} and {y0.dtype}."
         )
     if n > MAX_N:
         raise ValueError(f"the CUDA chain_apply kernel takes n <= {MAX_N}; got n={n}.")
@@ -102,7 +104,8 @@ def _launch_kernel(props, y0):
         stream = torch.cuda.current_stream(props.device).cuda_stream
         code = lib.chain_apply_launch(
             props.data_ptr(), y0.data_ptr(), out.data_ptr(), T, n, B,
-            props.stride(0), props.stride(1), props.stride(2), stream,
+            props.stride(0), props.stride(1), props.stride(2),
+            int(props.dtype == torch.complex128), stream,
         )
     if code != 0:
         raise RuntimeError(

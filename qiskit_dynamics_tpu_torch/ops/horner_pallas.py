@@ -103,8 +103,8 @@ def _launch_kernel(MTr, MTi, vr, vi, order: int, force_stream: bool = False):
     B, n = vr.shape
     if MTr.dtype != torch.float32:
         raise TypeError(
-            "the CUDA horner_apply kernel runs float32 only; float64 on the card waits for "
-            "ROADMAP A10 (native FP64 engines)."
+            "the CUDA horner_apply kernel runs float32 only; its complex128 mode is queued "
+            "(ROADMAP, left from A8)."
         )
     if n > MAX_N:
         raise ValueError(f"the CUDA horner_apply kernel takes n <= {MAX_N}; got n={n}.")

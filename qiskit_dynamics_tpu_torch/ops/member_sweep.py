@@ -212,8 +212,8 @@ def _launch_kernel(inputs: MemberInputs) -> torch.Tensor:
         )
     if inputs.real != torch.float32:
         raise TypeError(
-            "the CUDA member_sweep kernel runs float32 only; float64 on the card waits for "
-            "ROADMAP A10 (native FP64 engines)."
+            "the CUDA member_sweep kernel runs float32 only; its complex128 mode is queued "
+            "(ROADMAP, left from A8)."
         )
     device = inputs.y0.device
     lib = _kernel_lib()

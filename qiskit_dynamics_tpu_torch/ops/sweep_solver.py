@@ -286,8 +286,8 @@ def _launch_kernel(inputs: SweepInputs):
         raise ValueError(f"the CUDA sweep_magnus2 kernel takes n <= {MAX_N}; got n={n}.")
     if inputs.real != torch.float32:
         raise TypeError(
-            "the CUDA sweep_magnus2 kernel runs float32 only; float64 on the card waits for "
-            "ROADMAP A10 (native FP64 engines)."
+            "the CUDA sweep_magnus2 kernel runs float32 only; float64 sweeps on the card run "
+            "on kernel B8 (ops/df_sweep.py, fused_sweep_solve(precision='df32'))."
         )
     device = inputs.y0r.device
     mode_id = _MODES.index(inputs.mode)

@@ -16,14 +16,22 @@ basis.
   (:mod:`~qiskit_dynamics_tpu_torch.ops.polynomial_sweep`, above 128), or the
   batch-major eager engine (:mod:`~qiskit_dynamics_tpu_torch.ops.xla_sweep`);
   differentiable (kernel forward, eager backward); Hamiltonian and vectorized
-  Lindblad models.
+  Lindblad models. ``precision="df32"`` runs the same step rules in native
+  FP64 through kernel B8 (:mod:`~qiskit_dynamics_tpu_torch.ops.df_sweep`), on
+  a uniform or adaptive, possibly non-uniform, grid with trajectories at
+  arbitrary times; the JAX package's double-float32 engine exists because the
+  TPU has no FP64.
 - ``fused_adaptive_sweep_solve``: lockstep-adaptive dopri5 through kernel B1
   (:mod:`~qiskit_dynamics_tpu_torch.ops.adaptive_sweep`), Hamiltonian models.
 
-Not yet ported (``ROADMAP.md``): ``precision="df32"`` (A10), the gradient of
-the adaptive solve (A5), ``mesh=`` (A13), and the adaptive solve on Lindblad
+Not yet ported (``ROADMAP.md``): the gradient of the adaptive solve (A5),
+``mesh=`` and ``df_devices=`` (A13), and the adaptive solve on Lindblad
 models. Not carried: the member engine's Mosaic layout keywords
-``member_horner`` and ``member_build`` (one kernel computes that polynomial).
+``member_horner`` and ``member_build`` (one kernel computes that polynomial),
+and the JAX package's host-link workarounds of the df32 path
+(``_constant_envelope_factors``, ``_rank1_envelope_factors``,
+``_sample_coefficients_f64``): the coefficient table is one float64 vmapped
+pass on the device here.
 """
 from __future__ import annotations
 
@@ -139,6 +147,14 @@ def fused_sweep_solve(
     poly_horner: str = "auto",
     t_eval=None,
     mesh=None,
+    df_chunk_b: int = 2048,
+    df_magnus_order: int = 3,
+    df_engine: str = "auto",
+    df_grid: str = "uniform",
+    df_grid_tol: float = 1e-9,
+    df_fast: bool = True,
+    df_horner_tail: int = 6,
+    df_devices=None,
 ):
     r"""Solve ``y' = G_b(t) y`` for a parameter sweep on a fixed step grid.
 
@@ -165,7 +181,12 @@ def fused_sweep_solve(
             version is batched over members.
         rwa_signal_map: maps ``signals_fn``'s output to the model's signals
             (``Solver.solve_sweep`` wires the solver's map).
-        precision: ``"f32"``; ``"df32"`` waits for ROADMAP A10.
+        precision: ``"f32"`` (the engines below, float32 on the card) or
+            ``"df32"``: the 1e-8-class path, native FP64 through kernel B8
+            (the ``df_*`` keywords; see
+            :func:`~qiskit_dynamics_tpu_torch.ops.df_sweep.sweep_expm_magnus_df`).
+            Its result is a complex128 tensor on the model's device; it has
+            no gradient.
         magnus_mode: kernel B2's Magnus-2 evaluation (``"auto"``,
             ``"matrix"``, ``"matrix_herm"``, ``"matvec"``); ignored, with a
             warning, on the other engines (as is ``tile_b``).
@@ -188,19 +209,28 @@ def fused_sweep_solve(
             ``"pallas"`` (kernel B4), ``"einsum"`` (eager loop) or ``"auto"``
             (the kernel for single-column states at ``solve_dim >= 64``).
         t_eval: optional strictly increasing times on the step grid
-            ``t0 + j dt``; switches the return to trajectories.
+            ``t0 + j dt``; switches the return to trajectories. With
+            ``precision="df32"`` any times in ``t_span``: an off-grid time
+            splits the step that contains it.
         mesh: multi-device sharding; waits for ROADMAP A13 (raises).
+        df_chunk_b: (df32) members per kernel launch.
+        df_magnus_order: (df32) 2 or 3 (default: the 6th-order rule).
+        df_engine: (df32) ``"auto"``, ``"xla"`` or ``"pallas"``: the JAX
+            package's two engines; all three run kernel B8.
+        df_grid: (df32) ``"uniform"`` (``max_dt``-sized equal steps) or
+            ``"adaptive"``: a host float64 step-doubling walk of probe
+            members builds a non-uniform grid (``max_dt`` is then ignored).
+        df_grid_tol: (df32, adaptive grid) target total truncation error.
+        df_fast, df_horner_tail: (df32) the JAX package's double-float32
+            mixed-precision options; accepted, no-ops (all of it is FP64).
+        df_devices: (df32) multi-device dispatch; waits for ROADMAP A13.
 
     Returns:
         (B, dim) or (B, dim, m) final states at ``t_span[1]`` in the
         standard basis, (B, n, n) density matrices for a Lindblad model;
         with ``t_eval``, ``(B, n_eval, ...)``.
     """
-    if precision == "df32":
-        raise NotImplementedError(
-            'fused_sweep_solve(precision="df32") waits for ROADMAP A10 (native FP64 engines).'
-        )
-    if precision != "f32":
+    if precision not in ("f32", "df32"):
         raise DynamicsError(f"unknown precision {precision!r}; use 'f32' or 'df32'.")
     if mesh is not None:
         raise NotImplementedError(
@@ -241,6 +271,33 @@ def fused_sweep_solve(
         y0_fb = rho_fb.T.reshape(-1)  # column-stacking vec
     else:
         y0_fb = frame.state_into_frame_basis(y0)
+
+    if precision == "df32":
+        if df_devices is not None:
+            raise NotImplementedError(
+                "fused_sweep_solve(df_devices=...) waits for ROADMAP A13 (multi-device, "
+                "torch.distributed)."
+            )
+        if df_engine not in ("auto", "xla", "pallas"):
+            raise DynamicsError(f"unknown df_engine {df_engine!r}; use 'auto', 'xla' or 'pallas'.")
+        if df_magnus_order not in (2, 3):
+            raise DynamicsError(f"df_magnus_order must be 2 or 3, got {df_magnus_order!r}.")
+        if df_grid == "adaptive":
+            dts = _adaptive_df_grid(
+                signals_as_list, params, static_fb, ops_fb, omega, t0, tf, df_magnus_order,
+                df_grid_tol,
+            )
+        elif df_grid == "uniform":
+            dts = np.full(n_steps, dt)
+        else:
+            raise DynamicsError(f"unknown df_grid {df_grid!r}; use 'uniform' or 'adaptive'.")
+        dts, eval_slots, include_t0 = _df_eval_slots(t_eval, dts, t0, tf)
+        return _fused_sweep_solve_df(
+            model, signals_as_list, params, dts, static_fb, ops_fb, omega, y0_fb,
+            vectorized_lindblad, t0, expm_order, df_chunk_b, df_magnus_order, eval_slots,
+            include_t0,
+        )
+
     eval_slots, include_t0 = _fixed_eval_slots(t_eval, t0, tf, dt, n_steps)
     sweep_engine = _select_engine(
         sweep_engine, magnus_order, solve_dim,
@@ -327,7 +384,15 @@ def fused_sweep_solve(
             out = sweep_expm_magnus2(*args, **kwargs)
         yf, traj = out if eval_slots is not None else (out, None)
 
-    if t_eval is not None:
+    return _collect_solve(model, yf, traj, y0_cols, t_eval is not None, include_t0, B, m,
+                          vectorized_lindblad)
+
+
+def _collect_solve(model, yf, traj, y0_cols, want_traj: bool, include_t0: bool, B: int, m: int,
+                   vectorized_lindblad: bool):
+    """Frame-basis lanes (and trajectory) -> the standard-basis result of
+    :func:`fused_sweep_solve`."""
+    if want_traj:
         pieces = []
         if include_t0:
             pieces.append(y0_cols.to(yf.dtype)[None])
@@ -337,8 +402,179 @@ def fused_sweep_solve(
     if vectorized_lindblad:
         n = model.dim
         rho = yf[:, :B].reshape(n, n, B).permute(2, 1, 0)  # (B, n, n)
-        return frame.operator_out_of_frame_basis(rho)
+        return model.rotating_frame.operator_out_of_frame_basis(rho)
     return _collect_lanes(model, yf, B, m)
+
+
+def _adaptive_df_grid(
+    signals_as_list, params, static_fb, ops_fb, omega, t0, tf, magnus_order, tol, probes=None,
+):
+    """Host float64 adaptive step grid of the df32 path (as in the JAX package).
+
+    Greedy step-doubling walk of probe members (default: first, middle and
+    last; for amplitude sweeps the stiffest member is an end point): per
+    trial step the Magnus propagator over ``[t, t + dt]`` (scipy ``expm``) is
+    compared with two half steps, the tolerance spread per unit time
+    (``tol * dt / span``). The merged grid takes the pointwise smallest step
+    over the probes. Cost: O(grid x probes) host ``expm`` of the solve
+    dimension.
+    """
+    from scipy.linalg import expm
+
+    from ..ops.df_sweep import MAGNUS_NODES, _step_consts, magnus_operator
+
+    nodes = MAGNUS_NODES[magnus_order]
+    static_t, ops_t = (torch.as_tensor(to_numpy(x), dtype=torch.complex128)
+                       for x in (static_fb, ops_fb))
+    omega_t = torch.as_tensor(to_numpy(omega), dtype=torch.float64)
+    leaves = list(_leaves(params))
+    B = int(leaves[0].shape[0]) if leaves else 1
+    if probes is None:
+        probes = sorted({0, B // 2, B - 1})
+    span = tf - t0
+
+    def magnus_m(sig, t, dt):
+        taus = t + nodes * dt
+        coef = np.stack([np.atleast_1d(to_numpy(sig(tau)).astype(float)) for tau in taus])
+        step = np.array(_step_consts(magnus_order, np.array([dt])))[:, 0]
+        return magnus_operator(
+            static_t, ops_t, omega_t, torch.as_tensor(taus), torch.as_tensor(step),
+            torch.as_tensor(coef)[..., None], magnus_order, hermitian=False,
+        )[0].numpy()
+
+    p = 2 * magnus_order  # local error ~ dt^(p+1); tol_step ~ dt cancels one
+
+    def walk(sig):
+        t, dt, steps = t0, span / 64, []
+        for _ in range(200_000):
+            if t >= tf - 1e-12 * span:
+                return steps
+            dt = min(dt, tf - t)
+            u1 = expm(magnus_m(sig, t, dt))
+            u2 = expm(magnus_m(sig, t + dt / 2, dt / 2)) @ expm(magnus_m(sig, t, dt / 2))
+            err = float(np.max(np.abs(u1 - u2)))
+            tol_step = tol * dt / span
+            if err <= tol_step or dt <= 1e-7 * span:
+                steps.append((t, dt))
+                t += dt
+            factor = 0.85 * (tol_step / max(err, 1e-300)) ** (1.0 / p)
+            dt = dt * min(max(factor, 0.3), 3.0)
+        raise DynamicsError(
+            "df_grid='adaptive' did not converge on a step grid (200k trial steps); the "
+            "tolerance may be unreachable for this generator."
+        )
+
+    fns = []
+    with torch.no_grad():
+        for b in probes:
+            steps = walk(signals_as_list(_tree_map(lambda x: x[b], params)))
+            fns.append((np.array([s[0] for s in steps]), np.array([s[1] for s in steps])))
+
+    def dt_at(t):
+        return min(float(np.interp(t, ts, ds)) for ts, ds in fns)
+
+    t, dts = t0, []
+    while t < tf - 1e-12 * span:
+        d = min(dt_at(t), tf - t)
+        dts.append(d)
+        t += d
+        if len(dts) > 500_000:
+            raise DynamicsError("df_grid='adaptive' produced a pathological grid.")
+    return np.asarray(dts)
+
+
+def _df_eval_slots(t_eval, dts, t0: float, tf: float):
+    """Fit ``t_eval`` into the df step grid ``t0 + cumsum(dts)``.
+
+    The df32 path takes per-step sizes, so an off-grid evaluation time splits
+    the step that contains it (the split only shrinks steps). Points within
+    1e-9 relative of an existing edge snap to it instead of making a sliver
+    step. Returns ``(dts, eval_slots, include_t0)``: the refined step sizes,
+    a per-step tuple of trajectory slots (-1: no store) or ``None``, and
+    whether ``t_eval[0]`` is ``t0``.
+    """
+    dts = np.asarray(dts, dtype=float)
+    if t_eval is None:
+        return dts, None, False
+    te = _checked_t_eval(t_eval, t0, tf)
+    include_t0 = te[0] - t0 <= 1e-9 * max(1.0, abs(t0))
+    kept = te[1:] if include_t0 else te
+
+    def tol(t):
+        return 1e-9 * max(1.0, abs(t))
+
+    edges = t0 + np.cumsum(dts)  # time after step j
+    new_dts, slots = [], []
+    prev, i = t0, 0
+    for e in edges:
+        while i < len(kept) and kept[i] < e - tol(e):
+            t = float(kept[i])
+            if t - prev <= 0.0:
+                raise DynamicsError(
+                    "t_eval contains points too close together to separate on the step grid "
+                    f"(around t={t})."
+                )
+            new_dts.append(t - prev)
+            slots.append(i)
+            prev = t
+            i += 1
+        new_dts.append(float(e) - prev)
+        if i < len(kept) and abs(kept[i] - e) <= tol(e):
+            slots.append(i)
+            i += 1
+        else:
+            slots.append(-1)
+        prev = float(e)
+    if i < len(kept):
+        raise DynamicsError(
+            "t_eval points could not be placed on the step grid; the last "
+            f"{len(kept) - i} point(s) fall beyond the final step edge ({edges[-1]})."
+        )
+    return np.asarray(new_dts), (tuple(slots) if len(kept) else None), bool(include_t0)
+
+
+def _fused_sweep_solve_df(
+    model, signals_as_list, params, dts, static_fb, ops_fb, omega, y0_fb, vectorized_lindblad,
+    t0, expm_order, chunk_b, magnus_order, eval_slots, include_t0,
+):
+    """df32 branch of :func:`fused_sweep_solve`: the coefficient table in
+    float64 on the model's device (one vmapped pass at the Gauss times of the
+    grid ``dts``), then kernel B8 (the plain version for a CPU model)."""
+    from ..ops.df_sweep import MAGNUS_NODES, sweep_expm_magnus_df
+
+    if torch.is_grad_enabled() and any(
+        is_tensor(x) and x.requires_grad for x in _leaves(params)
+    ):
+        raise DynamicsError(
+            'fused_sweep_solve(precision="df32") has no gradient (as in the JAX package); '
+            'detach params or use precision="f32".'
+        )
+    if model.dtype != torch.complex128:
+        warnings.warn(
+            f"df32 precision requested but the model is stored in {model.dtype}; accuracy is "
+            "limited by that representation. Build the model with dtype=torch.complex128.",
+            stacklevel=3,
+        )
+    device = model.device
+    t_start = t0 + np.concatenate([[0.0], np.cumsum(dts)[:-1]])
+    gauss_times = torch.as_tensor(
+        t_start[:, None] + dts[:, None] * MAGNUS_NODES[magnus_order][None, :], device=device
+    )
+    params = _tree_map(lambda x: to_tensor(x, device=device), params)
+    with torch.no_grad():
+        coeffs = torch.movedim(
+            torch.func.vmap(lambda p: signals_as_list(p)(gauss_times))(params), 0, -1
+        ).to(torch.float64)  # (T, n_nodes, k, B)
+        coeffs, y0_cols, B, m = _expand_lanes(coeffs, y0_fb, y0_fb.shape[0], 1)
+        y0_cols = y0_cols.to(torch.complex128)
+        out = sweep_expm_magnus_df(
+            static_fb, ops_fb, omega, coeffs, y0_cols, dt=dts, t0=t0,
+            magnus_order=magnus_order, order=max(expm_order, 12), chunk_b=chunk_b,
+            hermitian=_all_anti_hermitian(model), eval_slots=eval_slots,
+        )
+        yf, traj = out if eval_slots is not None else (out, None)
+        return _collect_solve(model, yf, traj, y0_cols, eval_slots is not None or include_t0,
+                              include_t0, B, m, vectorized_lindblad)
 
 
 def _select_engine(sweep_engine: str, magnus_order: int, solve_dim: int, member_ok: bool) -> str:

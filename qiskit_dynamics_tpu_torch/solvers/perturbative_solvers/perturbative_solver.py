@@ -9,10 +9,14 @@ loop in complex128 numpy, and a batched route that builds every step's
 propagator with one polynomial evaluation (and one batched ``expm`` for
 Magnus) on the model's device and composes them with a log-depth scan.
 ``solve_sweep`` runs a whole parameter sweep through the batch-minor kernels:
-the streamed propagator chain, and for Magnus the batched Taylor ``expm``.
+the streamed propagator chain, and for Magnus the batched Taylor ``expm``;
+with ``precision="df32"`` in complex128, native FP64 in place of the JAX
+package's double-float32 Dysolve (``ops/df_chain.py``, whose term split and
+kernel cache are not carried).
 """
 from __future__ import annotations
 
+import contextlib
 from abc import ABC, abstractmethod
 from typing import Callable, List, Optional, Union
 
@@ -26,7 +30,7 @@ from ...ops.chain_apply import chain_apply_bol_ad
 from ...parallel.scan import propagator_scan
 from ...signals import SignalList
 from ...unified import is_tensor, to_numpy, to_tensor
-from ..fused_sweep import _tree_map
+from ..fused_sweep import _leaves, _tree_map
 from ..results import OdeResult
 from ..solver_utils import setup_args_lists
 from .expansion_model import ExpansionModel
@@ -233,9 +237,13 @@ class _PerturbativeSolver(ABC):
         ``T * B`` lanes; then applies the per-lane propagator chains with the
         streamed kernel
         (:func:`~qiskit_dynamics_tpu_torch.ops.chain_apply.chain_apply_bol`).
-        On the card the stepping runs in float32/complex64, the kernels'
-        type; on the CPU (the plain versions) in the model's ``dtype``. Signal
-        sampling is float64 either way. Differentiable in ``params``.
+        With ``precision="f32"`` the stepping runs on the card in
+        float32/complex64, the kernels' fastest type, and on the CPU (the
+        plain versions) in the model's ``dtype``; it is differentiable in
+        ``params``. With ``precision="df32"`` it runs in float64/complex128
+        everywhere (the complex128 kernels on the card): the JAX package's
+        1e-8-class double-float32 Dysolve, in native FP64. Signal sampling is
+        float64 either way.
 
         Args:
             t0: shared initial time.
@@ -249,41 +257,77 @@ class _PerturbativeSolver(ABC):
             expm_squarings: (Magnus only) scaling-and-squaring count of the
                 per-step Taylor-12 ``expm``. In the Dysolve regime the Magnus
                 polynomial's norm is well below 1, so Taylor-12 converges
-                unscaled and every squaring only amplifies float32 rounding;
-                the default 1 keeps a 2x margin on the convergence radius.
-                Raise it only for ``||Omega dt|| > 1``.
-            precision: ``"f32"``; ``"df32"`` (with ``df_order``,
-                ``df_chunk_b``, ``df_devices``) waits for ROADMAP A10, where
-                it becomes this path in native FP64.
+                unscaled and every squaring only amplifies rounding; the
+                default 1 keeps a 2x margin on the convergence radius. Raise
+                it only for ``||Omega dt|| > 1``.
+            precision: ``"f32"`` or ``"df32"`` (native FP64; no gradient:
+                ``params`` must not require grad).
+            df_order: (df32) the JAX package's double-float32 term split;
+                accepted, a no-op (every term is FP64 here).
+            df_chunk_b: (df32) sweep members per pass: bounds the (M, T x
+                members) float64 monomial table (7.5 GB for 461 monomials,
+                1,000 steps and 2,048 members).
+            df_devices: (df32) multi-device dispatch; waits for ROADMAP A13.
 
         Returns:
             (B, dim) final states on the model's device (in the rotating
-            frame of the model, like ``solve``).
+            frame of the model, like ``solve``); complex128 for ``"df32"``.
         """
-        if precision == "df32":
-            raise NotImplementedError(
-                'solve_sweep(precision="df32") (with df_order, df_chunk_b, df_devices) waits '
-                "for ROADMAP A10 (native FP64 engines)."
-            )
-        if precision != "f32":
+        if precision not in ("f32", "df32"):
             raise DynamicsError(f"Unknown precision {precision!r} (use 'f32' or 'df32').")
         if mesh is not None:
             raise NotImplementedError(
                 "solve_sweep(mesh=...) waits for ROADMAP A13 (multi-device, torch.distributed)."
             )
-
         model = self.model
-        poly = model.expansion_polynomial
         device = model.device
-        dim = model.Udt.shape[0]
-        cdtype = torch.complex64 if device.type == "cuda" else model.dtype
-        rdtype = _real_dtype(cdtype)
+        if precision == "df32":
+            del df_order  # every term is FP64 here
+            if df_devices is not None:
+                raise NotImplementedError(
+                    "solve_sweep(df_devices=...) waits for ROADMAP A13 (multi-device, "
+                    "torch.distributed)."
+                )
+            if torch.is_grad_enabled() and any(
+                is_tensor(x) and x.requires_grad for x in _leaves(params)
+            ):
+                raise DynamicsError(
+                    'solve_sweep(precision="df32") has no gradient (as in the JAX package); '
+                    'detach params or use precision="f32".'
+                )
+            if df_chunk_b < 1:
+                raise DynamicsError(f"df_chunk_b must be positive; got {df_chunk_b}")
+            cdtype = torch.complex128
+        else:
+            cdtype = torch.complex64 if device.type == "cuda" else model.dtype
 
         params = _tree_map(lambda x: to_tensor(x, device=device), params)
         coeffs = torch.func.vmap(
             lambda p: model.approximate_signals(signals_fn(p), t0, n_steps)
         )(params)                                            # (B, n_vars, T), float64
-        coeffs = torch.movedim(coeffs, 0, -1).to(rdtype)     # (n_vars, T, B)
+        coeffs = torch.movedim(coeffs, 0, -1).to(_real_dtype(cdtype))  # (n_vars, T, B)
+        B = coeffs.shape[2]
+
+        # the frame maps come from the frame in complex128 and are cast last
+        U0, Uf = _frame_ends(model, t0, n_steps)
+        y0_frame = torch.as_tensor(U0 @ to_numpy(y0).astype(complex), device=device).to(cdtype)
+        Uf = torch.as_tensor(Uf, device=device).to(cdtype)
+        chunk = df_chunk_b if precision == "df32" else B
+        with torch.no_grad() if precision == "df32" else contextlib.nullcontext():
+            return torch.cat([
+                (Uf @ self._sweep_chain(coeffs[:, :, b0:b0 + chunk], y0_frame, cdtype,
+                                        expm_squarings)).T
+                for b0 in range(0, B, chunk)
+            ])
+
+    def _sweep_chain(self, coeffs, y0_frame, cdtype, expm_squarings: int):
+        """The frame-basis final states (dim, B) of the members of ``coeffs``
+        (n_vars, T, B): the monomial table, one real product, the per-step
+        ``expm`` for Magnus, the streamed chain."""
+        model = self.model
+        poly = model.expansion_polynomial
+        device = model.device
+        dim = model.Udt.shape[0]
         T_steps, B = coeffs.shape[1], coeffs.shape[2]
 
         monomials = poly.compute_monomials(coeffs)           # (M, T, B)
@@ -300,6 +344,7 @@ class _PerturbativeSolver(ABC):
         else:
             start = torch.view_as_real(constant.reshape(dim * dim)).T.reshape(-1, 1)
             lanes = torch.addmm(start, planes, monomials)
+        del monomials
         lanes = lanes.reshape(2, dim, dim, T_steps * B)
 
         if model.expansion_method == "magnus":
@@ -308,6 +353,7 @@ class _PerturbativeSolver(ABC):
             exp_r, exp_i = expm_taylor_bol_ad(
                 lanes[0], lanes[1], _MAGNUS_EXPM_ORDER, expm_squarings
             )
+            del lanes
             Udt = torch.as_tensor(model.Udt, device=device).to(cdtype)
             props = (Udt @ torch.complex(exp_r, exp_i).reshape(dim, -1)).reshape(
                 dim, dim, T_steps, B
@@ -315,12 +361,7 @@ class _PerturbativeSolver(ABC):
         else:
             props = torch.complex(lanes[0], lanes[1]).reshape(dim, dim, T_steps, B)
         props = torch.movedim(props, 2, 0)                   # (T, n, n, B), a view
-
-        # the frame maps come from the frame in complex128 and are cast last
-        U0, Uf = _frame_ends(model, t0, n_steps)
-        y0_frame = torch.as_tensor(U0 @ to_numpy(y0).astype(complex), device=device).to(cdtype)
-        yf = chain_apply_bol_ad(props, y0_frame[:, None].expand(dim, B))
-        return (torch.as_tensor(Uf, device=device).to(cdtype) @ yf).T
+        return chain_apply_bol_ad(props, y0_frame[:, None].expand(dim, B))
 
 
 class DysonSolver(_PerturbativeSolver):

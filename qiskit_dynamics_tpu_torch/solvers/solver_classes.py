@@ -9,7 +9,9 @@ the RWA with a cached signal map (Hamiltonian models), and exposes
 - ``solve`` for one simulation with a scipy method (host float64);
 - ``solve_sweep`` for a parameter sweep: ``method="fused_dopri5"`` through
   the lockstep-adaptive kernel, ``method="fused_magnus2"`` through the
-  fixed-step kernel (differentiable).
+  fixed-step kernels (differentiable; ``precision="df32"`` runs native FP64),
+  ``method="chebyshev"`` through the certified Chebyshev interpolation of a
+  1-d or 2-d sweep.
 
 Pulse channels and schedules, quantum_info state types, the RWA of Lindblad
 models and list-broadcast ``solve`` calls are still to be ported
@@ -148,8 +150,13 @@ class Solver:
         its keywords ``sweep_engine``, ``magnus_order`` and ``poly_horner``
         choose among the fixed-step kernel, the member-major kernel, the
         polynomial engine and the eager engine, by ``solve_dim`` when left
-        at ``"auto"``).
-        The JAX package's ``chebyshev`` method waits for ROADMAP A10.
+        at ``"auto"``; ``precision="df32"`` runs the native-FP64 kernel B8).
+        ``method="chebyshev"`` interpolates a smooth sweep from a few dozen
+        df32 node solves with a certified error
+        (:func:`~qiskit_dynamics_tpu_torch.solvers.sweep_interpolation.interpolated_sweep_solve`);
+        a ``(p1_vals, p2_vals)`` tuple or a ``(B, 2)`` array of ``params``
+        dispatches to the 2-d map
+        (:func:`~qiskit_dynamics_tpu_torch.solvers.sweep_interpolation.interpolated_sweep_solve_2d`).
         ``kwargs`` go to the chosen solver.
 
         Returns:
@@ -168,9 +175,26 @@ class Solver:
                 self.model, signals_fn, params, t_span=t_span, y0=y0,
                 rwa_signal_map=rwa_signal_map, **kwargs,
             )
+        if method == "chebyshev":
+            from .sweep_interpolation import interpolated_sweep_solve, interpolated_sweep_solve_2d
+
+            # 2-d forms: a (p1_vals, p2_vals) tuple (product grid) or a (B, 2)
+            # point array; everything else is the 1-d scalar sweep
+            is_2d = (
+                isinstance(params, tuple) and len(params) == 2
+                and all(len(_shape(q)) == 1 for q in params)
+            ) or (
+                not isinstance(params, tuple) and len(_shape(params)) == 2
+                and _shape(params)[1] == 2
+            )
+            cheb = interpolated_sweep_solve_2d if is_2d else interpolated_sweep_solve
+            return cheb(
+                self.model, signals_fn, params, t_span=t_span, y0=y0,
+                rwa_signal_map=rwa_signal_map, **kwargs,
+            )
         raise DynamicsError(
-            f"solve_sweep method {method!r} is not ported yet; use 'fused_dopri5' or "
-            "'fused_magnus2'."
+            f"unknown solve_sweep method {method!r}; use 'fused_dopri5', 'fused_magnus2' or "
+            "'chebyshev'."
         )
 
     def _set_new_signals(self, signals):
@@ -183,6 +207,10 @@ class Solver:
         elif signals is not None and self._rwa_signal_map:
             signals = self._rwa_signal_map(signals)
         self.model.signals = signals
+
+
+def _shape(x) -> tuple:
+    return tuple(x.shape) if hasattr(x, "shape") else np.shape(x)
 
 
 def _rwa_seed_signals(carrier_freqs, ham_ops) -> List[Signal]:

@@ -277,7 +277,7 @@ def test_t_eval_validation(cr_pair, t_eval, message):
 
 @pytest.mark.parametrize(
     "kwargs, error, message",
-    [({"precision": "df32"}, NotImplementedError, "A10"),
+    [({"precision": "df32", "df_devices": ["cuda:0"]}, NotImplementedError, "A13"),
      ({"mesh": object()}, NotImplementedError, "A13"),
      ({"precision": "f16"}, DynamicsError, "unknown precision"),
      ({"sweep_engine": "member", "t_eval": [0.5, 1.0]}, DynamicsError, "vector initial states"),
@@ -404,13 +404,57 @@ def _perturbative_entry_points(eye):
     }
 
 
+def _high_precision_entry_points(eye, problem):
+    """The native-FP64 entry points, each returning its result (or inputs)."""
+    from qiskit_dynamics_tpu_torch.ops.df_sweep import prepare_df_inputs
+    from qiskit_dynamics_tpu_torch.solvers import (
+        interpolated_sweep_solve,
+        interpolated_sweep_solve_2d,
+    )
+
+    static, ops, omega, _, y0 = _args(problem)
+    amps = np.array([0.1, 0.2])
+    kw = dict(t_span=(0.0, 0.2), y0=np.eye(4, dtype=complex)[0], max_dt=0.1)
+
+    def cr_model():
+        solver, w1 = cr_solver(dim=2)
+        return solver, lambda a: [Signal(lambda t: a, carrier_freq=w1)]
+
+    def fused():
+        solver, fn = cr_model()
+        return solver.solve_sweep(fn, amps, method="fused_magnus2", precision="df32", **kw)
+
+    def interp(two_d):
+        solver, fn = cr_model()
+        if two_d:
+            return interpolated_sweep_solve_2d(
+                solver.model, lambda pq: fn(pq[0] + pq[1]), (amps, amps), min_level=1,
+                max_level=2, tol=1.0, rwa_signal_map=solver._rwa_signal_map, **kw)
+        return interpolated_sweep_solve(solver.model, fn, amps, min_level=1, max_level=2,
+                                        tol=1.0, rwa_signal_map=solver._rwa_signal_map, **kw)
+
+    config = dict(operators=[-1j * eye], rotating_frame=np.array([1.0, 2.0]), dt=0.1,
+                  carrier_freqs=[1.0], chebyshev_orders=[0], expansion_order=1)
+    return {
+        # a non-tensor y0 goes to the CUDA device
+        "sweep_expm_magnus_df": lambda: prepare_df_inputs(
+            static, ops, omega, problem["coef3"], y0, dt=DT).y0,
+        "fused_sweep_solve_df32": fused,
+        "interpolated_sweep_solve": lambda: interp(False),
+        "interpolated_sweep_solve_2d": lambda: interp(True),
+        "DysonSolver.solve_sweep_df32": lambda: port.DysonSolver(**config).solve_sweep(
+            0.0, 2, np.array([1.0, 0.0]), lambda a: [Signal(a, 1.0)], amps, precision="df32"),
+    }
+
+
 @pytest.mark.parametrize(
     "entry",
     ["cr_solver", "RotatingFrame", "HamiltonianModel", "LindbladModel", "Solver",
      "solver_from_arrays", "lindblad_model_from_arrays", "sweep_expm_magnus2",
      "sweep_expm_magnus2_xla", "ExpansionModel", "DysonSolver", "MagnusSolver",
      "dyson_transmon_solver", "magnus_transmon_solver", "ExpansionModel.load",
-     "perturbative_solver_from_arrays"],
+     "perturbative_solver_from_arrays", "sweep_expm_magnus_df", "fused_sweep_solve_df32",
+     "interpolated_sweep_solve", "interpolated_sweep_solve_2d", "DysonSolver.solve_sweep_df32"],
 )
 def test_device_none_means_cuda(entry, problem):
     """``device=None`` is the CUDA device: without one the entry points raise
@@ -438,6 +482,7 @@ def test_device_none_means_cuda(entry, problem):
             static, ops, omega, coef, y0, dt=DT
         ),
         **_perturbative_entry_points(eye),
+        **_high_precision_entry_points(eye, problem),
     }
     if torch.cuda.is_available():
         assert calls[entry]().device.type == "cuda"

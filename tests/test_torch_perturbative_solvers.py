@@ -247,8 +247,8 @@ def test_solve_sweep_raises_for_what_waits(solvers):
     _, _, carried = solvers
     solver = carried[torch.complex128]
     args = (T0, N_STEPS, Y0, port_signals, AMPS)
-    with pytest.raises(NotImplementedError, match="A10"):
-        solver.solve_sweep(*args, precision="df32", df_order=2)
+    with pytest.raises(NotImplementedError, match="A13"):
+        solver.solve_sweep(*args, precision="df32", df_devices=["cuda:0"])
     with pytest.raises(NotImplementedError, match="A13"):
         solver.solve_sweep(*args, mesh=object())
     with pytest.raises(DynamicsError, match="Unknown precision"):

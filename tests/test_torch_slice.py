@@ -150,7 +150,8 @@ def test_import_does_not_load_jax():
         "qiskit_dynamics_tpu_torch.ops.horner_pallas, qiskit_dynamics_tpu_torch.ops.polynomial_sweep, "
         "qiskit_dynamics_tpu_torch.solvers.fused_sweep, qiskit_dynamics_tpu_torch.models.lindblad_model, "
         "qiskit_dynamics_tpu_torch.models.model_utils, "
-        "qiskit_dynamics_tpu_torch.solvers.fixed_step_solvers; "
+        "qiskit_dynamics_tpu_torch.solvers.fixed_step_solvers, "
+        "qiskit_dynamics_tpu_torch.ops.df_sweep, qiskit_dynamics_tpu_torch.solvers.sweep_interpolation; "
         "print('jax' in sys.modules)"
     )
     root = Path(__file__).resolve().parent.parent

@@ -61,7 +61,7 @@ def test_kernel_trajectory_matches_plain(cuda):
 
 def test_kernel_rejects_float64_and_large_n(cuda):
     static, ops, omega, coef, y0 = _problem(4, 8, 2, cuda)
-    with pytest.raises(TypeError, match="A10"):
+    with pytest.raises(TypeError, match="kernel B8"):
         ssw.sweep_expm_magnus2(static, ops, omega, coef.double(), y0, dt=0.1, tile_b=8)
     static, ops, omega, coef, y0 = _problem(ssw.MAX_N + 1, 8, 2, cuda)
     with pytest.raises(ValueError, match="n <= 32"):
