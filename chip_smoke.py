@@ -11,14 +11,15 @@ raises and exits non-zero:
 1. device: a CUDA device is required; prints the card's name and power limit
    as ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
    reports them.
-2. build: compiles the seven kernel sources, the lockstep-adaptive dopri5
+2. build: compiles the eight kernel sources, the lockstep-adaptive dopri5
    sweep (``qiskit_dynamics_tpu_torch/csrc/adaptive_sweep.cu``), the fixed-step
    Magnus-2 sweep (``csrc/sweep_magnus2.cu``), the member-major Magnus-2/3
    sweep (``csrc/member_sweep.cu``), the Horner expm action
    (``csrc/horner_apply.cu``), the streamed propagator chain
    (``csrc/chain_apply.cu``), the batched product, Taylor expm and expm
-   backward (``csrc/batched_linalg.cu``) and the FP64 Magnus sweep
-   (``csrc/df_magnus_sweep.cu``), one nvcc each, in parallel.
+   backward (``csrc/batched_linalg.cu``), the FP64 Magnus sweep
+   (``csrc/df_magnus_sweep.cu``) and the fused expm chain
+   (``csrc/expm_chain.cu``), one nvcc each, in parallel.
 3. kernel against its eager twin on the card, in every mode (constant
    envelopes with padded lanes, envelope tables, eval times, budget
    exhaustion, stall guard) at n = 4, 9, 16, 27: final states within 1e-5,
@@ -71,9 +72,10 @@ raises and exits non-zero:
 
 11. the chain, batched product, Taylor expm and expm backward kernels against
    their plain versions on the card, on unit-norm inputs: n = 2, 4, 10, 16, 32,
-   37 and 1,000 lanes, chains of 1 and 7 steps, expm orders 8 and 12 with 0, 1
-   and 2 squarings. The chain kernel is built without multiply-add contraction
-   and must agree bit for bit; the others within 1e-5.
+   48 (the wide paths: two rows per thread in the chain, one lane per block
+   in the others), 37 and 1,000 lanes, chains of 1 and 7 steps, expm orders 8
+   and 12 with 0, 1 and 2 squarings. The chain kernel is built without
+   multiply-add contraction and must agree bit for bit; the others within 1e-5.
 12. the Dyson row of BASELINE config 4 at full width:
    ``dyson_transmon_solver(device="cuda")`` (dim 10, nu = 5, alpha = -0.33,
    r = 0.02, dt = 0.1, Chebyshev order 1, Dyson order 6) through
@@ -121,6 +123,20 @@ raises and exits non-zero:
    complex128 chain (and for Magnus the complex128 expm) kernels must launch
    once per pass of 1,024 members, and are timed alone beside their plain
    versions (and ``torch.linalg.matrix_exp``).
+18. the fused expm chain (kernel B9) at bench.py's cell: T = 64, b = 8,
+   n = m = 256, y0 = I, dt = 0.9, ||G|| = 2 (anti-Hermitian), order 12, 1
+   squaring, complex64, through ``benchmarks.expm_chain``: B9 must launch
+   once per ``engine="pallas"`` call; both engines timed as steady blocks
+   (us per expm+apply), their checksum ``sum |y|`` within 1e-5 relative, B9
+   against its plain version within 1e-4 on the unitary columns, and at
+   n = 100 (complex64, 2e-5) and n = 64 in complex128 (1e-12); the kernel's
+   time beside its bound, its plain version and the cuBLAS loop.
+19. the solver surface on the card: phase 4's CR ``Solver`` (n = 16, frame,
+   RWA) solved once over T = 100 with ``tpu_dopri5`` and ``tpu_dop853`` (tol
+   1e-8), ``jax_expm`` (Taylor, Magnus-2, max_dt 0.01) and
+   ``jax_RK4_parallel`` (max_dt 0.01): results stay on the card; populations
+   within 1e-7 (adaptive) and 1e-9 (fixed-step) of the host DOP853 (1e-10);
+   time and step counts.
 
 Earlier paths keep their widths; only their depth may be cut if the whole run
 nears its time limit (none is cut today).
@@ -169,7 +185,7 @@ PT_SWEEP = 2_048
 PT_CHUNKS = 8
 PT_TOL = 1e-5  # dyson_max_err and magnus_max_err against DOP853(1e-12)
 PT_KERNEL_TOL = 1e-5  # batched_linalg kernels vs torch.einsum: float32 roundoff
-PT_DIMS = (2, 4, 10, 16, 32)
+PT_DIMS = (2, 4, 10, 16, 32, 48)
 PT_BATCHES = (37, 1000)
 PT_EXPM_CASES = ((8, 0), (8, 2), (12, 0), (12, 1), (12, 2))
 DF_DIMS = (2, 4, 9, 16, 27, 32)
@@ -184,6 +200,23 @@ CHEB_DETUNING = 0.002
 DF_CHUNK = 1024  # members per pass of the FP64 Dysolve rows
 # the Magnus FP64 Dysolve row's expansion, chosen by scripts/torch_df_truncation.py
 MAGNUS_DF = dict(chebyshev_order=2, expansion_order=3)
+EC_T, EC_B, EC_N = 64, 8, 256  # phase 18: bench.py's dim-256 expm chain cell
+EC_DT, EC_ORDER, EC_SQUARINGS = 0.9, 12, 1
+EC_CHECKSUM_TOL = 1e-5  # the two engines' sum |y|, relative (BARS.md:27)
+# B9 against its plain version on the unitary columns of the cell, complex64:
+# float32 roundoff of 448 chained products, each summed in its own order
+EC_PLAIN_TOL = 1e-4
+SV_T = 100.0  # phase 19: the CR Solver once over T with each device method
+# (method, keywords, bar against the host DOP853 at 1e-10, in population), all
+# in complex128: the adaptive methods at tol 1e-8 (their error on the CPU is
+# 3.3e-8 and 7.5e-9), the fixed-step ones at max_dt = 0.01 (5.5e-11 and 6.1e-11,
+# most of it the reference's own); scripts/torch_solver_truncation.py
+SV_METHODS = (
+    ("tpu_dopri5", dict(atol=1e-8, rtol=1e-8), 1e-7),
+    ("tpu_dop853", dict(atol=1e-8, rtol=1e-8), 1e-7),
+    ("jax_expm", dict(max_dt=0.01, magnus_order=2, expm_method="taylor"), 1e-9),
+    ("jax_RK4_parallel", dict(max_dt=0.01), 1e-9),
+)
 # the card's peaks (H100 SXM data sheet): FP32 and FP64 outside the tensor cores,
 # FP64 matrix products on the tensor cores (DMMA), HBM
 PEAK_F32 = 67e12
@@ -1574,6 +1607,155 @@ def phase_dysolve_df(torch, ca, bl, Signal, make_solver, name, refs, ref_s, devi
     return result
 
 
+# --------------------------------------------------------------------------
+# phase 18: the fused expm chain (kernel B9) at bench.py's cell
+# --------------------------------------------------------------------------
+def unitary_generators(torch, T, b, n, dtype, device="cuda", seed=0):
+    """(T, b, n, n) anti-Hermitian generators of Frobenius norm 2, as
+    bench.py makes the cell's (here on the card, from a torch seed)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    a = torch.randn((T, b, n, n), generator=gen, dtype=torch.complex128, device=device)
+    a = -0.5j * (a + a.conj().transpose(-1, -2))
+    a = a / torch.linalg.matrix_norm(a, keepdim=True) * 2.0
+    return a.to(dtype)
+
+
+def expm_chain_work(T, b, n, m, order, squarings, entry_bytes):
+    """(operations, bytes) of a chain: per step the Paterson-Stockmeyer
+    products, the squarings and the apply, 8 real operations per complex
+    multiply-add; each generator read once, y0 read and the result written once."""
+    s = max(2, math.isqrt(order))
+    top = -(-(order + 1) // s) - 1
+    horner = top - 1 if s * top == order else top
+    square_products = (s - 1) + horner + squarings
+    flops = T * b * (square_products * 8 * n**3 + 8 * n * n * m)
+    nbytes = entry_bytes * (T * b * n * n + 2 * b * n * m)
+    return flops, nbytes
+
+
+def phase_expm_chain(torch, ecp, expm_chain, device="cuda"):
+    """B9 at the cell: both engines timed, their checksum, B9 against its
+    plain version, at n = 100 and in complex128; the launch count."""
+    start = time.perf_counter()
+    gens = unitary_generators(torch, EC_T, EC_B, EC_N, torch.complex64, device=device)
+    y0 = torch.eye(EC_N, dtype=torch.complex64, device=device).expand(EC_B, EC_N, EC_N)
+    y0 = y0.contiguous()
+
+    def run(engine):
+        return expm_chain(gens, EC_DT, y0, order=EC_ORDER, squarings=EC_SQUARINGS, engine=engine)
+
+    run("pallas")  # warm-up: the first launch
+    torch.cuda.synchronize()
+    ecp.expm_chain_fused.launches = 0
+    fused = run("pallas")
+    torch.cuda.synchronize()
+    launches = ecp.expm_chain_fused.launches
+    check(launches == 1, f"expm_chain(engine='pallas') launched B9 {launches} times, not once")
+    xla = run("xla")
+    check(fused.shape == (EC_B, EC_N, EC_N) and bool(torch.isfinite(
+        torch.view_as_real(fused)).all()), f"B9 output {tuple(fused.shape)} not finite")
+    sums = [float(y.abs().double().sum()) for y in (fused, xla)]  # summed in float64
+    checksum_rel = abs(sums[0] - sums[1]) / abs(sums[1])
+    check(checksum_rel <= EC_CHECKSUM_TOL, f"expm chain checksum: pallas {sums[0]} vs xla "
+          f"{sums[1]}, relative {checksum_rel:.2e} > {EC_CHECKSUM_TOL}")
+    plain = ecp.expm_chain_fused_plain(gens, EC_DT, y0, EC_ORDER, EC_SQUARINGS)
+    diff = float((fused - plain).abs().max())
+    check(diff <= EC_PLAIN_TOL, f"B9 vs plain at the cell {diff:.2e} > {EC_PLAIN_TOL}")
+    unitarity = float((fused @ fused.conj().transpose(-1, -2) - y0).abs().max())
+
+    per_call = {}
+    for engine in ("pallas", "xla"):
+        per_call[engine], block_s, reps = steady_time(torch, lambda e=engine: run(e))
+        log(f"  expm chain [{engine}]: {per_call[engine] * 1e3:.3f} ms per call ({reps} calls in "
+            f"a {block_s:.2f} s block)")
+    kernel_ms = cuda_ms(torch, lambda: run("pallas"), reps=5)
+    library_ms = cuda_ms(torch, lambda: run("xla"), reps=5)
+    plain_ms = cuda_ms(
+        torch, lambda: ecp.expm_chain_fused_plain(gens, EC_DT, y0, EC_ORDER, EC_SQUARINGS), 5)
+    flops, nbytes = expm_chain_work(EC_T, EC_B, EC_N, EC_N, EC_ORDER, EC_SQUARINGS, 8)
+    bound_ms, bound_by = bound(flops, nbytes)
+
+    # unaligned n, and complex128, against the plain version
+    extra = {}
+    for name, (T, b, n, m, dtype, tol) in {
+        "n100_c64": (16, 3, 100, 37, torch.complex64, 2e-5),
+        "n64_c128": (8, 2, 64, 5, torch.complex128, 1e-12),
+    }.items():
+        g = unitary_generators(torch, T, b, n, dtype, device=device, seed=n)
+        y = torch.linalg.qr(torch.randn((b, n, m), dtype=torch.complex128, device=device))[0]
+        y = y.to(dtype)
+        got = ecp.expm_chain_fused(g, EC_DT, y, EC_ORDER, EC_SQUARINGS)
+        want = ecp.expm_chain_fused_plain(g, EC_DT, y, EC_ORDER, EC_SQUARINGS)
+        extra[name] = float((got - want).abs().max())
+        check(extra[name] <= tol, f"B9 {name} vs plain {extra[name]:.2e} > {tol}")
+    us = {e: per_call[e] / (EC_T * EC_B) * 1e6 for e in per_call}
+    print(
+        f"phase 18 expm chain (B9): T={EC_T}, b={EC_B}, n=m={EC_N}, order {EC_ORDER}, "
+        f"squarings {EC_SQUARINGS}, complex64: pallas {us['pallas']:.2f} us/expm+apply "
+        f"({per_call['pallas'] * 1e3:.3f} ms/call), xla (cuBLAS loop) {us['xla']:.2f} "
+        f"us/expm+apply ({per_call['xla'] * 1e3:.3f} ms/call); kernel {kernel_ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}, {flops / 1e9:.1f} GFLOP); "
+        f"checksum rel {checksum_rel:.2e} (<= {EC_CHECKSUM_TOL}); B9 vs plain {diff:.2e} (<= "
+        f"{EC_PLAIN_TOL}), n=100 {extra['n100_c64']:.2e} (<= 2e-5), complex128 n=64 "
+        f"{extra['n64_c128']:.2e} (<= 1e-12); max |U U^H - I| {unitarity:.2e}; launches "
+        f"{launches}; in {time.perf_counter() - start:.1f} s",
+        flush=True,
+    )
+    return dict(launches=launches, max_abs_err=diff, ms=kernel_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                pallas_us_per_expm=us["pallas"], xla_us_per_expm=us["xla"],
+                checksum_rel=checksum_rel)
+
+
+# --------------------------------------------------------------------------
+# phase 19: the solver surface on the card (the CR Solver, device methods)
+# --------------------------------------------------------------------------
+def solver_surface_problem(Signal, w1, dim):
+    """The CR drive of phase 4 at amplitude 1 (0.02 after AMP_SCALE) and e_0."""
+    y0 = np.zeros(dim, dtype=complex)
+    y0[0] = 1.0
+    return [Signal(AMP_SCALE, carrier_freq=w1)], y0
+
+
+def phase_solver_surface(torch, Signal, solver, w1, ref_solver, device="cuda"):
+    """Each method of SV_METHODS once over SV_T against the host DOP853(1e-10)."""
+    signals, y0 = solver_surface_problem(Signal, w1, solver.model.dim)
+    start = time.perf_counter()
+    ref = ref_solver.solve(t_span=[0.0, SV_T], y0=y0, signals=signals, method="DOP853",
+                           atol=1e-10, rtol=1e-10)
+    ref_s = time.perf_counter() - start
+    ref_pop = np.abs(ref.y[-1]) ** 2
+    rows = {}
+    for method, kwargs, bar in SV_METHODS:
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        res = solver.solve(t_span=[0.0, SV_T], y0=y0, signals=signals, method=method, **kwargs)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        check(isinstance(res.y, torch.Tensor) and res.y.device.type == device,
+              f"{method}: the result is not a tensor on the {device} device")
+        pop = (res.y[-1].abs() ** 2).cpu().numpy()
+        err = float(np.max(np.abs(pop - ref_pop)))
+        check(bool(np.isfinite(pop).all()) and err <= bar,
+              f"{method}: population error {err:.2e} > {bar} against DOP853(1e-10)")
+        if "nfev" in res:  # attempted steps: 6 (dopri5) or 12 (DOP853) evaluations each
+            steps = (int(res.nfev) - 2) // (6 if method == "tpu_dopri5" else 12)
+        else:
+            steps = int(np.ceil(SV_T / kwargs["max_dt"]))
+        rows[method] = dict(s=seconds, err=err, steps=steps)
+        log(f"  {method} {kwargs}: {seconds:.2f} s, err {err:.2e} (<= {bar}), steps {steps}")
+    print(
+        f"phase 19 solver surface: cr_solver n={solver.model.dim} (frame, RWA), T={SV_T}, "
+        + "; ".join(
+            f"{m} {r['s']:.2f} s, {r['steps']} steps, err {r['err']:.2e} (<= {bar})"
+            for (m, _, bar), r in zip(SV_METHODS, rows.values())
+        )
+        + f"; host DOP853(1e-10) {ref_s:.2f} s",
+        flush=True,
+    )
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -1591,6 +1773,7 @@ def main() -> int:
     from qiskit_dynamics_tpu_torch import Signal, Solver, solve_ode
     from qiskit_dynamics_tpu_torch.benchmarks import (
         cr_solver,
+        expm_chain,
         dyson_transmon_solver,
         lindblad_qudit_solver,
         lindblad_two_transmon_solver,
@@ -1601,15 +1784,16 @@ def main() -> int:
     from qiskit_dynamics_tpu_torch.ops import batched_linalg as bl
     from qiskit_dynamics_tpu_torch.ops import chain_apply as ca
     from qiskit_dynamics_tpu_torch.ops import df_sweep as dfs
+    from qiskit_dynamics_tpu_torch.ops import expm_chain_pallas as ecp
     from qiskit_dynamics_tpu_torch.ops import horner_pallas as hp
     from qiskit_dynamics_tpu_torch.ops import member_sweep as msw
     from qiskit_dynamics_tpu_torch.ops import sweep_solver as ssw
     from qiskit_dynamics_tpu_torch.solvers.fused_sweep import _expand_lanes, sweep_arguments
 
-    # phase 2: build the seven kernel sources, one nvcc each, in parallel
+    # phase 2: build the eight kernel sources, one nvcc each, in parallel
     start = time.perf_counter()
     names = ("adaptive_sweep", "sweep_magnus2", "member_sweep", "horner_apply", "chain_apply",
-             "batched_linalg", "df_magnus_sweep")
+             "batched_linalg", "df_magnus_sweep", "expm_chain")
     with ThreadPoolExecutor(len(names)) as pool:
         for lib in pool.map(_build.load, names):
             check(lib is not None, "a kernel library did not load")
@@ -1783,6 +1967,10 @@ def main() -> int:
     magnus_df = phase_dysolve_df(torch, ca, bl, Signal, magnus_transmon_solver, "magnus_df",
                                  pt_refs, pt_ref_s, **MAGNUS_DF)
 
+    # phase 18: the fused expm chain; phase 19: the solver surface on phase 4's model
+    chain = phase_expm_chain(torch, ecp, expm_chain)
+    phase_solver_surface(torch, Signal, solver, w1, ref_solver)
+
     kernels = [{
         "name": "adaptive_sweep",
         "route": "cuda",
@@ -1891,6 +2079,16 @@ def main() -> int:
         "cheb2d_sims_per_s": cheb["map_sims_per_s"],
         "cheb2d_nodes": cheb["map_nodes"],
         "cheb2d_max_err": cheb["map_max_err"],
+    }, {
+        "name": "expm_chain",
+        "route": "cuda",
+        "source": "qiskit_dynamics_tpu_torch/csrc/expm_chain.cu",
+        "replaces": "qiskit_dynamics_tpu/ops/expm_chain_pallas.py:44",
+        **{key: chain[key] for key in (
+            "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "pallas_us_per_expm": chain["pallas_us_per_expm"],
+        "xla_us_per_expm": chain["xla_us_per_expm"],
+        "checksum_rel": chain["checksum_rel"],
     }]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -23,7 +23,10 @@ engines (kernels B3, B4); the perturbation package (``ArrayPolynomial``,
 B5) and the batched Taylor ``expm`` and its backward (kernels B6, B7, B10);
 the high-precision family in native FP64: ``fused_sweep_solve(precision="df32")``
 on kernel B8, the Chebyshev-interpolated sweeps, and the perturbative sweeps
-with ``precision="df32"`` on the complex128 kernels B5 and B6.
+with ``precision="df32"`` on the complex128 kernels B5 and B6; the fused
+expm chain (kernel B9) with ``expm_taylor`` and ``benchmarks.expm_chain``,
+and the device methods of ``solve_ode``/``solve_lmde`` (fixed-step Magnus and
+RK4, Lanczos, parallel, adaptive dopri5/DOP853) with per-solve metrics.
 ``ROADMAP.md`` lists what is still to come.
 """
 import torch as _torch
@@ -59,3 +62,4 @@ from . import signals
 from . import solvers
 from . import ops
 from . import perturbation
+from . import utils

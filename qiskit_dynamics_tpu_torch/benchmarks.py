@@ -7,8 +7,10 @@ model of the 10,000-point amplitude sweep. ``lindblad_qudit_solver`` and
 ``lindblad_two_transmon_solver`` are the two large-dimension vectorized
 Lindblad models the JAX package benchmarks inline (``bench.py``, the dim-8 and
 dim-256 rows). ``dyson_transmon_solver`` and ``magnus_transmon_solver`` are the
-single-transmon perturbative solvers of BASELINE config 4. The JAX package's
-other benchmark models are still to be ported (``ROADMAP.md``).
+single-transmon perturbative solvers of BASELINE config 4. ``rabi_solver`` is
+BASELINE config 1, and ``expm_chain`` the sustained expm-propagator chain
+(kernel B9 and its cuBLAS yardstick). The JAX package's other benchmark models
+are still to be ported (``ROADMAP.md``).
 """
 from __future__ import annotations
 
@@ -21,6 +23,8 @@ from .solvers import Solver
 
 __all__ = [
     "cr_solver",
+    "rabi_solver",
+    "expm_chain",
     "lindblad_qudit_solver",
     "lindblad_two_transmon_solver",
     "dyson_transmon_solver",
@@ -87,6 +91,55 @@ def cr_solver(
         dtype=dtype,
     )
     return solver, w1
+
+
+def rabi_solver(nu: float = 5.0, device=None, dtype: torch.dtype = torch.complex128):
+    """Single-qubit Rabi Solver (BASELINE config 1)."""
+    X = np.array([[0.0, 1.0], [1.0, 0.0]], dtype=complex)
+    Z = np.array([[1.0, 0.0], [0.0, -1.0]], dtype=complex)
+    solver = Solver(
+        static_hamiltonian=2 * np.pi * nu * Z / 2,
+        hamiltonian_operators=[2 * np.pi * X / 2],
+        rotating_frame=2 * np.pi * nu * Z / 2,
+        device=device,
+        dtype=dtype,
+    )
+    return solver, nu
+
+
+def expm_chain(
+    generators, dt: float, y0, order: int = 12, squarings: int = 2, engine: str = "xla",
+):
+    """Sustained expm-propagator chain: ``y <- expm(G_t dt) @ y`` over steps.
+
+    Args:
+        generators: (T, ..., n, n) per-step (optionally batched) generators, a
+            tensor.
+        dt: step size.
+        y0: (..., n, m) states/propagators to which the chain is applied, a
+            tensor on the generators' device.
+        engine: ``"xla"`` (the name kept from the JAX package: an eager loop
+            of :func:`~qiskit_dynamics_tpu_torch.ops.expm.expm_taylor`, whose
+            batched products are cuBLAS calls on the card) or ``"pallas"``
+            (kernel B9,
+            :func:`~qiskit_dynamics_tpu_torch.ops.expm_chain_pallas.expm_chain_fused`;
+            the same polynomial, (T, b, n, n)/(T, n, n) shapes).
+
+    Returns:
+        (..., n, m) final states.
+    """
+    if engine == "pallas":
+        from .ops.expm_chain_pallas import expm_chain_fused
+
+        return expm_chain_fused(generators, dt, y0, order=order, squarings=squarings)
+    if engine != "xla":
+        raise ValueError(f"engine must be 'xla' or 'pallas', got {engine!r}")
+    from .ops.expm import expm_taylor
+
+    y = y0
+    for g in generators:
+        y = expm_taylor(g * dt, order=order, squarings=squarings) @ y
+    return y
 
 
 def lindblad_qudit_solver(dim: int = 8, device=None, dtype: torch.dtype = torch.complex128):

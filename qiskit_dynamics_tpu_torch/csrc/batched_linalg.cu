@@ -7,7 +7,7 @@
 // plain versions: qiskit_dynamics_tpu_torch/ops/batched_linalg.py.
 //
 // Layout. Matrices come as (n, n, L) real and imaginary planes with the lane
-// (sweep member x time step) minor, n <= 32: float32, or float64 for the expm
+// (sweep member x time step) minor, n <= 64: float32, or float64 for the expm
 // (the complex128 instantiation serves the FP64 Magnus Dysolve). A plane is addressed with an
 // element stride es: 1 for a contiguous plane, 2 for the real or imaginary
 // view of a contiguous complex tensor, so neither form needs a copy.
@@ -34,7 +34,9 @@
 //
 // Design. One block owns LB lanes (a power of two up to 32, the largest whose
 // matrices fit about half an SM's shared memory, so two blocks share an SM;
-// in FP64 each matrix takes twice the bytes, so a block holds half the lanes).
+// in FP64 each matrix takes twice the bytes, so a block holds half the lanes;
+// from n ~ 40 one lane's matrices pass half an SM and a block holds one lane,
+// up to the whole 227 KB at n = 64).
 // Working matrices are float2 arrays [row][col][lane] in shared memory, lane
 // minor: a half-warp's 8-byte accesses fall on consecutive words. A thread
 // owns one TILE x TILE block of entries of its lane's matrices (TILE = 5
@@ -68,7 +70,9 @@
 
 namespace {
 
-constexpr int kMaxN = 32;
+// At n = 64 one lane's matrices fill a block: three (five for the backward)
+// complex64 matrices of 32 KB, or three complex128 ones of 64 KB, of the 227 KB.
+constexpr int kMaxN = 64;
 constexpr int kMaxThreads = 1024;
 constexpr size_t kSharedTarget = 110 * 1024;  // two blocks of this size share an SM
 constexpr size_t kSharedLimit = 232448;       // dynamic shared memory a block may use

@@ -35,6 +35,12 @@
 // takes 64 registers, so above n = 16 it loads each row when it is used
 // instead of one step ahead (two rows of 32 complex128 values would not fit
 // the 255 registers of a thread).
+//
+// From n = 33 to 64 (chain_apply_wide_kernel) a block has 32 threads per lane
+// and each thread computes two rows, i and i + 32, of its lane's new state:
+// n is a runtime value, every row is read from memory as it is used, and the
+// sum over m runs in order with the same rounded operations, so this path is
+// bitwise with the plain version too. Above 64 the wrapper raises.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -111,6 +117,70 @@ chain_apply_kernel(const typename Complex<R>::type* __restrict__ props,
   if (live) out[(size_t)i * B + b] = ybuf[cur][i][l];
 }
 
+// 33 <= n <= 64: 32 threads per lane, rows i and i + 32 per thread, rows read
+// from memory when used.
+template <typename R, int LANES>
+__global__ void __launch_bounds__(32 * LANES)
+chain_apply_wide_kernel(const typename Complex<R>::type* __restrict__ props,
+                        const typename Complex<R>::type* __restrict__ y0,
+                        typename Complex<R>::type* __restrict__ out, int T, int n, int B,
+                        long long st, long long si, long long sj) {
+  using C = typename Complex<R>::type;
+  constexpr int kRows = 2;
+  __shared__ C ybuf[2][32 * kRows][LANES];
+  const int l = threadIdx.x % LANES, i = threadIdx.x / LANES;
+  const int b = blockIdx.x * LANES + l;
+  const bool live = b < B;
+  C zero;
+  zero.x = 0;
+  zero.y = 0;
+#pragma unroll
+  for (int h = 0; h < kRows; ++h) {
+    const int r = i + 32 * h;
+    if (r < n) ybuf[0][r][l] = live ? y0[(size_t)r * B + b] : zero;
+  }
+  __syncthreads();
+
+  int cur = 0;
+  for (int t = 0; t < T; ++t) {
+#pragma unroll
+    for (int h = 0; h < kRows; ++h) {
+      const int r = i + 32 * h;
+      if (r < n) {
+        const C* row = props + (long long)t * st + (long long)r * si + b;
+        R ar = 0, ai = 0;
+        for (int m = 0; m < n; ++m) {
+          const C u = live ? __ldcs(row + m * sj) : zero;
+          const C y = ybuf[cur][m][l];
+          ar = ar + (u.x * y.x - u.y * y.y);
+          ai = ai + (u.x * y.y + u.y * y.x);
+        }
+        C v;
+        v.x = ar;
+        v.y = ai;
+        ybuf[cur ^ 1][r][l] = v;
+      }
+    }
+    __syncthreads();
+    cur ^= 1;
+  }
+#pragma unroll
+  for (int h = 0; h < kRows; ++h) {
+    const int r = i + 32 * h;
+    if (live && r < n) out[(size_t)r * B + b] = ybuf[cur][r][l];
+  }
+}
+
+template <typename R>
+cudaError_t launch_wide(const void* props, const void* y0, void* out, int T, int n, int B,
+                        long long st, long long si, long long sj, cudaStream_t stream) {
+  using C = typename Complex<R>::type;
+  constexpr int LANES = 8;
+  chain_apply_wide_kernel<R, LANES><<<(B + LANES - 1) / LANES, 32 * LANES, 0, stream>>>(
+      (const C*)props, (const C*)y0, (C*)out, T, n, B, st, si, sj);
+  return cudaGetLastError();
+}
+
 template <typename R, int N>
 cudaError_t launch(const void* props, const void* y0, void* out, int T, int B, long long st,
                    long long si, long long sj, cudaStream_t stream) {
@@ -131,11 +201,14 @@ extern "C" {
 int chain_apply_launch(const void* props, const void* y0, void* out, int T, int n, int B,
                        long long st, long long si, long long sj, int double_precision,
                        void* stream) {
-  if (T < 1 || n < 1 || n > 32 || B < 1) return (int)cudaErrorInvalidValue;
+  if (T < 1 || n < 1 || n > 64 || B < 1) return (int)cudaErrorInvalidValue;
   const void* p = props;
   const void* y = y0;
   void* o = out;
   cudaStream_t s = (cudaStream_t)stream;
+  if (n > 32)
+    return (int)(double_precision ? launch_wide<double>(p, y, o, T, n, B, st, si, sj, s)
+                                  : launch_wide<float>(p, y, o, T, n, B, st, si, sj, s));
 #define CHAIN_CASE(N)                                                     \
   case N:                                                                 \
     return (int)(double_precision ? launch<double, N>(p, y, o, T, B, st, si, sj, s) \

@@ -2,8 +2,10 @@
 dopri5 sweep (B1), the fixed-step Magnus-2 sweep (B2), the member-major
 Magnus-2/3 sweep (B3), the Horner expm action (B4), the streamed propagator
 chain (B5), the batch-minor Taylor expm, its backward and the batched product
-(B6, B7, B10), the native-FP64 Magnus sweep (B8), the eager and polynomial
-engines and the differentiable wrappers of the fixed-step sweeps."""
+(B6, B7, B10), the native-FP64 Magnus sweep (B8), the fused expm chain (B9)
+and the fixed-order Taylor expm it shares with the fixed-step solvers, the
+eager and polynomial engines and the differentiable wrappers of the
+fixed-step sweeps."""
 from .adaptive_sweep import sweep_dopri5_lockstep, sweep_dopri5_lockstep_plain
 from .sweep_solver import sweep_expm_magnus2, sweep_expm_magnus2_plain
 from .xla_sweep import sweep_expm_magnus2_xla
@@ -13,6 +15,8 @@ from .polynomial_sweep import expand_magnus_polynomial, sweep_expm_magnus_poly
 from .sweep_ad import sweep_expm_magnus2_ad, sweep_expm_magnus2_member_ad
 from .df_sweep import sweep_expm_magnus_df, sweep_expm_magnus_df_plain
 from .chain_apply import chain_apply_bol, chain_apply_bol_ad, chain_apply_bol_plain
+from .expm import expm_taylor
+from .expm_chain_pallas import expm_chain_fused, expm_chain_fused_plain
 from .batched_linalg import (
     matmul_bol,
     expm_taylor_bol,
@@ -48,4 +52,7 @@ __all__ = [
     "expm_taylor_bol_bwd",
     "to_bol",
     "from_bol",
+    "expm_taylor",
+    "expm_chain_fused",
+    "expm_chain_fused_plain",
 ]

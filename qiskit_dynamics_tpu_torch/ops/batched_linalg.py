@@ -48,7 +48,7 @@ __all__ = [
     "from_bol",
 ]
 
-MAX_N = 32  # the kernels keep whole matrices of a lane in shared memory
+MAX_N = 64  # the kernels keep whole matrices of a lane in shared memory (227 KB a block)
 
 
 def to_bol(A):

@@ -14,9 +14,9 @@ primal with a plain-XLA adjoint; the port keeps that pairing:
   trajectory gradients flow too. Neither kernel has a backward kernel, as in
   the JAX package.
 
-Gradients reach ``coefficients`` and ``y0``, and ``static_op`` and
-``operators`` when they require grad. There is no gradient with respect to
-``frame_omega`` (the JAX package has one; the port returns ``None``).
+Gradients reach every input that requires grad: ``coefficients``, ``y0``,
+``static_op``, ``operators`` and ``frame_omega`` (through the float64 frame
+phases of the eager engine), as in the JAX package.
 """
 from __future__ import annotations
 
@@ -31,12 +31,11 @@ __all__ = ["sweep_expm_magnus2_ad", "sweep_expm_magnus2_member_ad"]
 
 def _eager_vjp(ctx, cotangents, eval_slots, **engine_kwargs):
     """Gradients of the saved (static_op, operators, frame_omega, coefficients,
-    y0) through the eager engine run with ``engine_kwargs``; ``None`` for
-    ``frame_omega`` and for inputs that need no gradient."""
+    y0) through the eager engine run with ``engine_kwargs``; ``None`` for the
+    inputs that need no gradient."""
     wants = ctx.needs_input_grad
     with torch.enable_grad():
         inputs = [x.detach().requires_grad_(wants[i]) for i, x in enumerate(ctx.saved_tensors)]
-        inputs[2].requires_grad_(False)
         out = sweep_expm_magnus2_xla(*inputs, eval_slots=eval_slots, **engine_kwargs)
         outs = out if eval_slots is not None else (out,)
         pairs = [(o, g) for o, g in zip(outs, cotangents) if g is not None]
@@ -92,8 +91,7 @@ def sweep_expm_magnus2_ad(
 ):
     """:func:`~qiskit_dynamics_tpu_torch.ops.sweep_solver.sweep_expm_magnus2`
     with gradients (arguments as there, all tensors on one device). The
-    backward pass runs the eager engine in the dtype of ``coefficients``.
-    There is no gradient with respect to ``frame_omega``."""
+    backward pass runs the eager engine in the dtype of ``coefficients``."""
     statics = (float(dt), float(t0), int(order), bool(hermitian), mode, int(tile_b),
                None if eval_slots is None else tuple(int(s) for s in eval_slots))
     out = _SweepMagnus2.apply(static_op, operators, frame_omega, coefficients, y0, statics)
@@ -106,6 +104,6 @@ def sweep_expm_magnus2_member_ad(
     """:func:`~qiskit_dynamics_tpu_torch.ops.member_sweep.sweep_expm_magnus2_member`
     with gradients (arguments as there, all tensors on one device): the
     member-major kernel forward, the eager engine at the same ``magnus`` order
-    backward. There is no gradient with respect to ``frame_omega``."""
+    backward."""
     statics = (float(dt), float(t0), int(order), bool(hermitian), int(magnus))
     return _SweepMagnus2Member.apply(static_op, operators, frame_omega, coefficients, y0, statics)

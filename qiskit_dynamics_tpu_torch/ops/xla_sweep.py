@@ -53,7 +53,7 @@ def sweep_expm_magnus2_xla(
     ``y0`` may also be 3d ``(B, n, m)`` batch-major: ``m`` state columns per
     member sharing one generator; outputs are then ``(B, n, m)`` (and an
     ``(n_eval, B, n, m)`` trajectory). Gradients flow to every tensor input
-    that requires grad except ``frame_omega``.
+    that requires grad, ``frame_omega`` included.
     """
     if magnus_order not in (2, 3):
         raise ValueError(f"magnus_order must be 2 or 3, got {magnus_order!r}")
@@ -127,7 +127,7 @@ def sweep_expm_magnus2_xla(
         return v
 
     differentiable = torch.is_grad_enabled() and any(
-        isinstance(x, torch.Tensor) and x.requires_grad for x in (coef, static, ops, y)
+        isinstance(x, torch.Tensor) and x.requires_grad for x in (coef, static, ops, omega, y)
     )
     evals = [None] * n_eval
     for step in range(T):

@@ -10,8 +10,11 @@ joint ODE solve of the stacked state ``[V, D_{I_1} V, D_{I_2} V, ...]``, a
 ``(k+1, n, n)`` array whose right-hand side is a stack of generator
 evaluations contracted through the compiled tables. It runs on the host in
 complex128 through :func:`~qiskit_dynamics_tpu_torch.solvers.solve_ode`
-(the scipy methods): this is a once-per-model precompute. The Magnus terms
-are then obtained from the Dyson terms via the Q-matrix recursion.
+(the scipy methods by default): this is a once-per-model precompute. With a
+device ``integration_method`` (``tpu_dop853``, ``jax_RK4``, ...) the stacked
+state lives on ``device`` (the CUDA device when None) and the terms come back
+to the host. The Magnus terms are then obtained from the Dyson terms via the
+Q-matrix recursion.
 """
 from __future__ import annotations
 
@@ -19,10 +22,10 @@ from math import factorial
 from typing import Callable, List, Optional, Tuple
 
 import numpy as np
+import torch
 
-from ..exceptions import DynamicsError
-from ..solvers.solver_functions import _is_scipy_method, solve_ode
-from ..unified import to_numpy
+from ..solvers.solver_functions import _is_device_method, solve_ode
+from ..unified import default_device, to_numpy
 from .custom_dot import CustomMatmul, compile_rule
 from .multiset_utils import (
     Multiset,
@@ -37,15 +40,6 @@ from .perturbation_data import PowerSeriesData, DysonLikeData
 __all__ = ["solve_lmde_dyson", "solve_lmde_magnus", "magnus_from_dyson"]
 
 
-def _check_integration_method(integration_method):
-    if not _is_scipy_method(integration_method):
-        raise DynamicsError(
-            f"integration_method {integration_method!r} is not ported yet: the perturbative "
-            "precompute runs through the scipy methods of solve_ode (e.g. 'DOP853'); the "
-            "fixed-step and device-side methods come with ROADMAP A12."
-        )
-
-
 def solve_lmde_dyson(
     perturbations: List[Callable],
     t_span,
@@ -57,10 +51,12 @@ def solve_lmde_dyson(
     dyson_like: bool = False,
     integration_method: str = "DOP853",
     t_eval=None,
+    device=None,
     **kwargs,
 ):
-    """Compute Dyson (or Dyson-like) terms via one joint stacked ODE solve."""
-    _check_integration_method(integration_method)
+    """Compute Dyson (or Dyson-like) terms via one joint stacked ODE solve.
+    ``device`` places the stacked state of a device ``integration_method``
+    (None: the CUDA device); the scipy methods run on the host."""
     mat_dim = np.shape(perturbations[0](t_span[0]))[0]
 
     if generator is None:
@@ -92,12 +88,14 @@ def solve_lmde_dyson(
         axis=0,
     )
 
+    if _is_device_method(integration_method):
+        y0 = torch.as_tensor(y0, device=default_device(device))
     results = solve_ode(
         rhs=dyson_rhs, t_span=t_span, y0=y0, method=integration_method, t_eval=t_eval, **kwargs
     )
 
     # unstack: axis layout (time, term, n, n) -> (term, time, n, n)
-    ys = np.asarray(results.y).transpose((1, 0, 2, 3))
+    ys = to_numpy(results.y).transpose((1, 0, 2, 3))
     base_solution = ys[0]
     dyson_data = ys[1:]
 

@@ -60,8 +60,10 @@ def solve_lmde_perturbation(
             ``dyson_in_frame=False`` and is unsupported for magnus.
         dyson_in_frame: return Dyson terms with the frame factor
             :math:`V(t)` removed.
-        integration_method: a scipy method of :func:`solve_ode` (the others are
-            not ported yet and raise).
+        integration_method: a method of :func:`solve_ode`: a scipy method
+            (host), or a device method such as ``tpu_dop853``, whose stacked
+            state lives on ``device`` (a keyword in ``kwargs``; the CUDA
+            device when absent).
         t_eval: additional evaluation times.
         kwargs: forwarded to the integrator.
 

@@ -210,6 +210,7 @@ class ExpansionModel:
             expansion_order=expansion_order,
             expansion_labels=expansion_labels,
             integration_method=integration_method,
+            device=frame.device,
             **kwargs,
         )
 

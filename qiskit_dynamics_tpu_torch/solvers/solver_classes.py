@@ -6,7 +6,9 @@ pulse channels: it builds a ``HamiltonianModel``, or a vectorized
 ``device``/``dtype`` (``device=None`` is the CUDA device), optionally applies
 the RWA with a cached signal map (Hamiltonian models), and exposes
 
-- ``solve`` for one simulation with a scipy method (host float64);
+- ``solve`` for one simulation with any method of ``solve_lmde``: the scipy
+  methods on the host, the fixed-step, Lanczos, parallel and adaptive
+  methods on the model's device;
 - ``solve_sweep`` for a parameter sweep: ``method="fused_dopri5"`` through
   the lockstep-adaptive kernel, ``method="fused_magnus2"`` through the
   fixed-step kernels (differentiable; ``precision="df32"`` runs native FP64),
@@ -95,15 +97,21 @@ class Solver:
         return self._model
 
     def solve(self, t_span, y0, signals=None, **kwargs) -> OdeResult:
-        r"""Solve one simulation with a scipy method (``method="DOP853"`` by
-        default), signals given before the RWA (for a Lindblad model a list
-        of Hamiltonian signals or a ``(hamiltonian, dissipator)`` tuple).
+        r"""Solve one simulation with a method of
+        :func:`~qiskit_dynamics_tpu_torch.solvers.solve_lmde`
+        (``method="DOP853"`` by default), signals given before the RWA (for a
+        Lindblad model a list of Hamiltonian signals or a ``(hamiltonian,
+        dissipator)`` tuple).
 
         ``y0`` is an array or tensor of shape (dim,) or (dim, m) for a
         Hamiltonian model; for a vectorized Lindblad model a (dim, dim)
         density matrix (the result is then (dim, dim) per time) or a
-        column-stacked (dim^2,) / (dim^2, m) state. The result's ``y`` is a
-        host numpy array with time on axis 0, in the standard basis."""
+        column-stacked (dim^2,) / (dim^2, m) state. The result's ``y`` has
+        time on axis 0, in the standard basis: a host numpy array for the
+        host methods (the scipy methods, ``RK4``, ``scipy_expm``,
+        ``lanczos_diag``), a tensor on the model's device for the device
+        methods (``jax_expm``, ``jax_RK4``, ``tpu_dopri5``, ...), as the JAX
+        package returns device arrays."""
         if kwargs.get("method", "DOP853") in (
             "fused_dopri5", "fused", "fused_magnus2", "fused_expm"
         ):
@@ -129,7 +137,8 @@ class Solver:
         finally:
             self._set_new_signals(None)
         if density_matrix:
-            results.y = np.swapaxes(results.y.reshape(-1, dim, dim), 1, 2)
+            y = results.y.reshape(-1, dim, dim)
+            results.y = y.transpose(1, 2) if torch.is_tensor(y) else np.swapaxes(y, 1, 2)
         return results
 
     def solve_sweep(self, signals_fn, params, t_span, y0, method: str = "fused_dopri5",

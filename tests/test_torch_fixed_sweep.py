@@ -447,6 +447,42 @@ def _high_precision_entry_points(eye, problem):
     }
 
 
+def _device_method_entry_points(eye):
+    """The device methods of ``solve_ode``/``solve_lmde`` with host inputs,
+    each returning its result's states (or terms)."""
+    from qiskit_dynamics_tpu_torch.benchmarks import rabi_solver
+    from qiskit_dynamics_tpu_torch.perturbation import solve_lmde_perturbation
+
+    def precompute():
+        # the stacked state of a device method lives on the CUDA device
+        import qiskit_dynamics_tpu_torch.perturbation.dyson_magnus as dm
+
+        seen = {}
+        solve = dm.solve_ode
+
+        def spy(**kwargs):
+            seen["y0"] = kwargs["y0"]
+            return solve(**kwargs)
+
+        dm.solve_ode = spy
+        try:
+            solve_lmde_perturbation([lambda t: eye], [0.0, 0.1], "dyson", expansion_order=1,
+                                    integration_method="jax_RK4", max_dt=0.1)
+        finally:
+            dm.solve_ode = solve
+        return seen["y0"]
+
+    return {
+        "rabi_solver": lambda: rabi_solver()[0].model,
+        # a host y0 and a function-based right-hand side go to the CUDA device
+        "solve_ode_jax_RK4": lambda: port.solve_ode(
+            lambda t, y: y, [0.0, 0.1], np.ones(2), method="jax_RK4", max_dt=0.1).y,
+        "solve_lmde_jax_expm": lambda: port.solve_lmde(
+            lambda t: -1j * eye, [0.0, 0.1], np.ones(2), method="jax_expm", max_dt=0.1).y,
+        "solve_lmde_perturbation_device": precompute,
+    }
+
+
 @pytest.mark.parametrize(
     "entry",
     ["cr_solver", "RotatingFrame", "HamiltonianModel", "LindbladModel", "Solver",
@@ -454,7 +490,8 @@ def _high_precision_entry_points(eye, problem):
      "sweep_expm_magnus2_xla", "ExpansionModel", "DysonSolver", "MagnusSolver",
      "dyson_transmon_solver", "magnus_transmon_solver", "ExpansionModel.load",
      "perturbative_solver_from_arrays", "sweep_expm_magnus_df", "fused_sweep_solve_df32",
-     "interpolated_sweep_solve", "interpolated_sweep_solve_2d", "DysonSolver.solve_sweep_df32"],
+     "interpolated_sweep_solve", "interpolated_sweep_solve_2d", "DysonSolver.solve_sweep_df32",
+     "rabi_solver", "solve_ode_jax_RK4", "solve_lmde_jax_expm", "solve_lmde_perturbation_device"],
 )
 def test_device_none_means_cuda(entry, problem):
     """``device=None`` is the CUDA device: without one the entry points raise
@@ -483,6 +520,7 @@ def test_device_none_means_cuda(entry, problem):
         ),
         **_perturbative_entry_points(eye),
         **_high_precision_entry_points(eye, problem),
+        **_device_method_entry_points(eye),
     }
     if torch.cuda.is_available():
         assert calls[entry]().device.type == "cuda"

@@ -108,9 +108,9 @@ def test_chain_kernel_rejects(cuda):
         ca.chain_apply_bol(props, y0.to(torch.complex128))
     with pytest.raises(ValueError, match="at least one propagator"):
         ca.chain_apply_bol(props[:0], y0)
-    big = torch.zeros((1, 33, 33, 2), dtype=torch.complex64, device=cuda)
-    with pytest.raises(ValueError, match="n <= 32"):
-        ca.chain_apply_bol(big, torch.zeros((33, 2), dtype=torch.complex64, device=cuda))
+    big = torch.zeros((1, 65, 65, 2), dtype=torch.complex64, device=cuda)
+    with pytest.raises(ValueError, match="n <= 64"):
+        ca.chain_apply_bol(big, torch.zeros((65, 2), dtype=torch.complex64, device=cuda))
 
 
 @pytest.mark.parametrize("B", BATCHES)
@@ -188,6 +188,6 @@ def test_batched_linalg_kernels_reject(cuda):
         bl.expm_taylor_bol_bwd(*[p.double() for p in planes * 2])
     with pytest.raises(ValueError, match="shape mismatch"):
         bl.matmul_bol(planes[0], planes[1], planes[0], planes[1][:, :, :2])
-    big = unit_planes(np.random.default_rng(2), 33, 2, cuda)
-    with pytest.raises(ValueError, match="n <= 32"):
+    big = unit_planes(np.random.default_rng(2), 65, 2, cuda)
+    with pytest.raises(ValueError, match="n <= 64"):
         bl.expm_taylor_bol(*big)

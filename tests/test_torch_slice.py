@@ -151,7 +151,10 @@ def test_import_does_not_load_jax():
         "qiskit_dynamics_tpu_torch.solvers.fused_sweep, qiskit_dynamics_tpu_torch.models.lindblad_model, "
         "qiskit_dynamics_tpu_torch.models.model_utils, "
         "qiskit_dynamics_tpu_torch.solvers.fixed_step_solvers, "
-        "qiskit_dynamics_tpu_torch.ops.df_sweep, qiskit_dynamics_tpu_torch.solvers.sweep_interpolation; "
+        "qiskit_dynamics_tpu_torch.ops.df_sweep, qiskit_dynamics_tpu_torch.solvers.sweep_interpolation, "
+        "qiskit_dynamics_tpu_torch.ops.expm, qiskit_dynamics_tpu_torch.ops.expm_chain_pallas, "
+        "qiskit_dynamics_tpu_torch.solvers.adaptive, qiskit_dynamics_tpu_torch.solvers.lanczos, "
+        "qiskit_dynamics_tpu_torch.solvers.solver_utils, qiskit_dynamics_tpu_torch.utils.metrics; "
         "print('jax' in sys.modules)"
     )
     root = Path(__file__).resolve().parent.parent
