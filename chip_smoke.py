@@ -50,19 +50,29 @@ raises and exits non-zero:
    within 1e-5 of the port's float64 DOP853 (atol = rtol = 1e-10).
 8. the member-sweep and Horner kernels against their plain versions on the
    card: member sweep with Magnus-2 and Magnus-3, ``hermitian`` on and off,
-   at n = 8, 64, and (Magnus-2) 96, 100, 128, 37 members, 5 steps; Horner at
+   at n = 8, 33, 37, 64, Magnus-3 also at 63 and Magnus-2 also at 96, 100,
+   128 (33, 37, 63 are ragged for its 16-row MMA tiles), 37 members, 5
+   steps; Horner at
    n = 64, 96, 100, 256 (cluster-resident kernel, 1 to 4 blocks per member)
    and 512 (streaming kernel), orders 8 and 12, 37 members, and the
    streaming kernel forced at n = 256. Both kernels fuse
-   multiply-adds and sum in their own order, so they agree with
-   ``torch.matmul`` to float32 roundoff: within 1e-5 on norm-1 states.
+   multiply-adds and sum in their own order (the member sweep's products
+   in 3xTF32 on the tensor cores), so they agree with ``torch.matmul`` to
+   float32 roundoff: within 1e-5 on norm-1 states. Then the member sweep at
+   four bracket-dominated cases (n = 37, 64 for both rules, generators of
+   norm ~20, steps of 0.1) against the plain version in complex128 within
+   5e-6, which float32 products meet and single-pass TF32 products fail.
 9. the Lindblad dim-8 sweep at full width (a driven 8-level transmon with
    amplitude damping, vectorized, solve_dim 64, 10,240 amplitudes, T = 20)
    through ``solve_sweep(method="fused_magnus2")`` with ``sweep_engine``
    left at "auto", which must launch the member-sweep kernel: Magnus-3 at
    max_dt = 0.05 (400 steps) within 4e-6 and Magnus-2 at max_dt = 0.02
    (1,000 steps) within 2.5e-6 of the port's float64 DOP853
-   (atol = rtol = 1e-12) at members 0, 5,120 and 10,239.
+   (atol = rtol = 1e-12) at members 0, 5,120 and 10,239. Per row the
+   kernel's time beside both bounds (products in 3xTF32 on the tensor
+   cores, which the kernel is held to, and everything at the FP32 rate),
+   its time at Horner order 1 and, at Magnus-2, with ``hermitian`` on the
+   same inputs (the part split), and its blocks per SM.
 10. the Lindblad dim-256 sweep at full width (two 4-level transmons with
    amplitude damping, vectorized, solve_dim 256, 2,048 amplitudes, T = 10,
    max_dt = 0.08: 125 steps, Magnus-3) through ``sweep_engine="poly"``,
@@ -144,6 +154,7 @@ nears its time limit (none is cut today).
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Nothing of JAX is imported.
 """
+import dataclasses
 import json
 import math
 import subprocess
@@ -172,6 +183,16 @@ LIND_T = 20.0
 LIND_MAX_DT = 0.02
 LIND_TOL = 1e-5
 B3_TOL = 1e-5  # member sweep and Horner kernels vs torch.matmul: float32 roundoff
+# phase 8's B3 dims: 33, 37 and 63 are ragged for the kernel's 16-row MMA tiles
+B3_DIMS2 = (8, 33, 37, 64, 96, 100, 128)
+B3_DIMS3 = (8, 33, 37, 63, 64)
+# phase 8's bracket-dominated B3 cases, (magnus, n): anti-Hermitian generators of
+# spectral radius ~20 and steps of 0.1, so the brackets' products carry much of
+# each step matrix. The kernel is held against the plain version in complex128:
+# float32 with the products in 3xTF32 reads a few 1e-7 there, single-pass TF32
+# products ~7e-5 (a CPU emulation; the card readings are in PERF.md).
+B3_BRACKET_CASES = ((2, 37), (2, 64), (3, 37), (3, 64))
+B3_BRACKET_TOL = 5e-6
 L8_SWEEP = 10_240
 L8_T = 20.0
 L8_ROWS = ((3, 0.05, 4e-6), (2, 0.02, 2.5e-6))  # (magnus_order, max_dt, limit vs DOP853 1e-12)
@@ -220,6 +241,7 @@ SV_METHODS = (
 # the card's peaks (H100 SXM data sheet): FP32 and FP64 outside the tensor cores,
 # FP64 matrix products on the tensor cores (DMMA), HBM
 PEAK_F32 = 67e12
+PEAK_TF32 = 495e12  # dense TF32 on the tensor cores
 PEAK_F64 = 34e12
 PEAK_F64_PRODUCTS = 67e12
 PEAK_BYTES = 3.35e12
@@ -695,14 +717,15 @@ def phase_lindblad(torch, ssw, Signal, Solver):
 # --------------------------------------------------------------------------
 # phase 8: the member-sweep and Horner kernels against their plain versions
 # --------------------------------------------------------------------------
-def member_problem(torch, n, members, steps, magnus, hermitian, k=2):
+def member_problem(torch, n, members, steps, magnus, hermitian, k=2, scale=1.5):
     """Seeded member-sweep inputs on the card: norm-1 states, generators of
-    norm ~3 (so a step of 0.05 moves the state by ~0.15), a diagonal frame."""
+    norm ~2 ``scale`` (at 1.5 a step of 0.05 moves the state by ~0.15), a
+    diagonal frame."""
     gen = np.random.default_rng(1000 * magnus + n)
     a = gen.normal(size=(k + 1, n, n)) + 1j * gen.normal(size=(k + 1, n, n))
     if hermitian:
         a = -1j * (a + np.conj(np.transpose(a, (0, 2, 1)))) / 2
-    a = a * (1.5 / np.sqrt(n))
+    a = a * (scale / np.sqrt(n))
     w = 2 * np.pi * np.sort(gen.uniform(0.0, 5.0, n))
     coef = torch.as_tensor(gen.uniform(-1, 1, (steps, magnus, k, members)), device="cuda").float()
     y0 = gen.normal(size=(n, members)) + 1j * gen.normal(size=(n, members))
@@ -721,11 +744,29 @@ def horner_problem(torch, n, members):
     return planes + [torch.as_tensor(x, device="cuda").float() for x in v]
 
 
+def b3_bracket_diffs(torch, msw):
+    """B3 at :data:`B3_BRACKET_CASES`, ``hermitian`` off and on, against the
+    plain version in complex128: a list of ((magnus, n, hermitian), diff)."""
+    out = []
+    for magnus, n in B3_BRACKET_CASES:
+        for hermitian in (False, True):
+            static, ops, omega, coef, y0 = member_problem(torch, n, 37, 5, magnus, True,
+                                                          scale=10.0)
+            kwargs = dict(dt=0.1, t0=0.2, hermitian=hermitian, magnus=magnus)
+            kernel = msw.sweep_expm_magnus2_member(static, ops, omega, coef, y0, **kwargs)
+            exact = msw.sweep_expm_magnus2_member_plain(
+                msw.prepare_inputs(static, ops, omega, coef.double(), y0, **kwargs))
+            torch.cuda.synchronize()
+            out.append(((magnus, n, hermitian), float((kernel - exact).abs().max())))
+    return out
+
+
 def phase_large_dim_kernels(torch, msw, hp):
-    """Both kernels against their plain versions. Returns the two max diffs."""
+    """Both kernels against their plain versions, and B3's bracket-dominated
+    cases against complex128. Returns the three max diffs."""
     members = 37  # a ragged batch
     worst_member = 0.0
-    for magnus, dims in ((2, (8, 64, 96, 100, 128)), (3, (8, 64))):
+    for magnus, dims in ((2, B3_DIMS2), (3, B3_DIMS3)):
         for n in dims:
             for hermitian in (False, True):
                 args = member_problem(torch, n, members, 5, magnus, hermitian)
@@ -739,6 +780,13 @@ def phase_large_dim_kernels(torch, msw, hp):
                       f"vs plain {diff:.2e} > {B3_TOL}")
                 worst_member = max(worst_member, diff)
                 log(f"  B3 magnus {magnus} n={n:3d} hermitian {hermitian!s:5s} diff {diff:.2e}")
+    worst_bracket = 0.0
+    for (magnus, n, hermitian), diff in b3_bracket_diffs(torch, msw):
+        check(diff <= B3_BRACKET_TOL, f"B3 bracket-dominated magnus={magnus} n={n} hermitian="
+              f"{hermitian}: kernel vs complex128 {diff:.2e} > {B3_BRACKET_TOL}")
+        worst_bracket = max(worst_bracket, diff)
+        log(f"  B3 bracket-dominated magnus {magnus} n={n:3d} hermitian {hermitian!s:5s} "
+            f"vs complex128 {diff:.2e}")
     worst_horner = 0.0
     cases = [(n, order, False) for n in (64, 96, 100, 256, 512) for order in (8, 12)]
     for n, order, force_stream in cases + [(256, 8, True)]:
@@ -754,24 +802,46 @@ def phase_large_dim_kernels(torch, msw, hp):
         worst_horner = max(worst_horner, diff)
         log(f"  B4 n={n:3d} order {order:2d} {'streaming forced' if force_stream else ''} "
             f"diff {diff:.2e}")
-    return worst_member, worst_horner
+    return worst_member, worst_horner, worst_bracket
 
 
 # --------------------------------------------------------------------------
 # phase 9: the Lindblad dim-8 sweep through the member-sweep kernel
 # --------------------------------------------------------------------------
-def b3_bound(inputs):
-    """Bound of one member-sweep launch: per member and step the brackets
-    (8 n^3 per complex product), the Horner mat-vecs, the generator
-    combination and the Magnus assembly; the rotated tables once per step."""
+def b3_bounds(inputs):
+    """Both bounds of one member-sweep launch. Work per member and step: the
+    brackets' complex products (8 n^3 operations each; one at Magnus-2 with
+    ``hermitian``, two per bracket otherwise, as the kernel forms them), the Horner mat-vecs,
+    the generator combination and the Magnus assembly; the rotated tables
+    once per step. ``f32_ms`` counts everything at the FP32 rate outside the
+    tensor cores; ``tf32x3_ms``, the bound the kernel's design is held to,
+    counts the products as three TF32 passes on the tensor cores (3xTF32,
+    495 TFLOP/s dense) and the rest at the FP32 rate. ``products_*_ms`` are
+    the products' share of each."""
     n, k, T, B, magnus = inputs.n, inputs.k, inputs.steps, inputs.batch, inputs.magnus
-    products = (1 if inputs.hermitian else 2) * (1 if magnus == 2 else 3)
+    products = 1 if magnus == 2 and inputs.hermitian else 2 if magnus == 2 else 6
     assembly = (8 if magnus == 2 else 40) * n * n
-    per_member_step = (products * 8 * n**3 + inputs.order * 8 * n * n
-                       + magnus * 4 * k * n * n + assembly)
-    flops = per_member_step * T * B + T * magnus * (k + 1) * 6 * n * n
+    product_flops = products * 8 * n**3 * T * B
+    other_flops = ((inputs.order * 8 * n * n + magnus * 4 * k * n * n + assembly) * T * B
+                   + T * magnus * (k + 1) * 6 * n * n)
     nbytes = 4 * T * magnus * k * B + 16 * n * B + 8 * (k + 1) * n * n + 8 * n * n
-    return bound(flops, nbytes)
+    f32_ms, f32_by = bound(product_flops + other_flops, nbytes)
+    tf32_ms, tf32_by = bound(3 * product_flops / PEAK_TF32 * PEAK_F32 + other_flops, nbytes)
+    return dict(f32_ms=f32_ms, f32_by=f32_by, tf32x3_ms=tf32_ms, tf32x3_by=tf32_by,
+                products_f32_ms=product_flops / PEAK_F32 * 1e3,
+                products_tf32x3_ms=3 * product_flops / PEAK_TF32 * 1e3)
+
+
+def b3_bound(inputs):
+    """(bound_ms, bound_by) that B3 is held to: :func:`b3_bounds`' 3xTF32 bound."""
+    bounds = b3_bounds(inputs)
+    return bounds["tf32x3_ms"], bounds["tf32x3_by"]
+
+
+def b3_blocks_per_sm(lib, inputs):
+    """Blocks of the member-sweep kernel that one SM holds at these inputs
+    (the CUDA occupancy calculator, through the kernel library)."""
+    return lib.member_sweep_blocks_per_sm(inputs.n, inputs.k)
 
 
 def host_references(Signal, solver, rho0, carrier, amps, t_final):
@@ -834,20 +904,35 @@ def phase_lindblad8(torch, msw, Signal, solver, rho0, carrier, refs, ref_s, magn
 
     eager_ms, _ = timed_ms(torch, eager)
     bound_ms, bound_by = b3_bound(inputs)
+    bounds = b3_bounds(inputs)
+    # the part split, from the kernel's own arguments: order 1 (Horner's share)
+    # and, at Magnus-2, hermitian (one product instead of two) on the same inputs
+    order1_ms = cuda_ms(torch, lambda: msw._launch_kernel(dataclasses.replace(inputs, order=1)),
+                        reps=1)
+    herm = {}
+    if magnus == 2:
+        herm["hermitian_ms"] = cuda_ms(torch, lambda: msw._launch_kernel(
+            dataclasses.replace(inputs, hermitian=True)), reps=1)
+    blocks = b3_blocks_per_sm(msw._kernel_lib(), inputs)
     print(
         f"phase 9 Lindblad dim 8, Magnus-{magnus}: solve_dim {inputs.n}, {L8_SWEEP} members, "
         f"{inputs.steps} steps (T={L8_T}, max_dt={max_dt}), sweep_engine auto -> member: "
         f"{L8_SWEEP / per_call:.1f} sims/s ({reps} calls in {block_s:.2f} s, "
-        f"{per_call * 1e3:.1f} ms/call); kernel {kernel_ms:.1f} ms (bound {bound_ms:.1f} ms, "
-        f"{bound_by}), plain {plain_ms:.1f} ms, eager engine {eager_ms:.1f} ms (one call each, "
-        f"full shape); kernel vs plain {diff:.2e} (<= {B3_TOL}); max error {err:.2e} "
-        f"(<= {limit}, {len(probes)} probes vs DOP853 1e-12 at {ref_s:.2f} s/sim); "
-        f"max |trace - 1| {trace_dev:.2e}; launches {launches}",
+        f"{per_call * 1e3:.1f} ms/call); kernel {kernel_ms:.1f} ms (bound {bound_ms:.1f} ms "
+        f"with the products in 3xTF32, {bound_ms / kernel_ms:.0%}; {bounds['f32_ms']:.1f} ms "
+        f"at the FP32 rate, {bounds['f32_ms'] / kernel_ms:.0%}; {bound_by}), plain "
+        f"{plain_ms:.1f} ms, eager engine {eager_ms:.1f} ms (one call each, full shape); "
+        f"kernel at Horner order 1 {order1_ms:.1f} ms"
+        + (f", with hermitian {herm['hermitian_ms']:.1f} ms" if herm else "") + "; "
+        f"{blocks} blocks of 8 warps per SM; kernel vs plain {diff:.2e} (<= {B3_TOL}); max "
+        f"error {err:.2e} (<= {limit}, {len(probes)} probes vs DOP853 1e-12 at {ref_s:.2f} "
+        f"s/sim); max |trace - 1| {trace_dev:.2e}; launches {launches}",
         flush=True,
     )
     return dict(launches=launches, max_abs_err=diff, ms=kernel_ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, eager_ms=eager_ms,
-                sims_per_s=L8_SWEEP / per_call, max_err=err)
+                bound_ms=bound_ms, bound_by=bound_by, bound_fp32_ms=bounds["f32_ms"],
+                order1_ms=order1_ms, **herm, blocks_per_sm=blocks,
+                eager_ms=eager_ms, sims_per_s=L8_SWEEP / per_call, max_err=err)
 
 
 # --------------------------------------------------------------------------
@@ -1905,10 +1990,12 @@ def main() -> int:
 
     # phase 8: the member-sweep and Horner kernels against their plain versions
     start = time.perf_counter()
-    b3_diff, b4_diff = phase_large_dim_kernels(torch, msw, hp)
+    b3_diff, b4_diff, b3_bracket = phase_large_dim_kernels(torch, msw, hp)
     print(f"phase 8 member_sweep and horner_apply vs plain: member sweep Magnus-2 x n in "
-          f"(8, 64, 96, 100, 128) and Magnus-3 x n in (8, 64), hermitian on and off (max diff "
-          f"{b3_diff:.2e}); horner n in (64, 96, 100, 256, 512) x orders (8, 12) and the "
+          f"{B3_DIMS2} and Magnus-3 x n in {B3_DIMS3}, hermitian on and off (max diff "
+          f"{b3_diff:.2e}); member sweep bracket-dominated at (magnus, n) in "
+          f"{B3_BRACKET_CASES}, hermitian on and off, vs complex128 {b3_bracket:.2e} (<= "
+          f"{B3_BRACKET_TOL}; single-pass TF32 fails it); horner n in (64, 96, 100, 256, 512) x orders (8, 12) and the "
           f"streaming kernel at 256 (max diff "
           f"{b4_diff:.2e}); all <= {B3_TOL} (float32 roundoff: the kernels sum in another "
           f"order than torch.matmul) in {time.perf_counter() - start:.1f} s", flush=True)
@@ -2006,11 +2093,15 @@ def main() -> int:
         **{key: l8[0][key] for key in (
             "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None,
+        "bound_fp32_ms": l8[0]["bound_fp32_ms"],
+        "order1_ms": l8[0]["order1_ms"],
+        "blocks_per_sm": l8[0]["blocks_per_sm"],
+        "bracket_dominated_err_c128": b3_bracket,
         "eager_engine_ms": l8[0]["eager_ms"],
         "sims_per_s": l8[0]["sims_per_s"],
         "lindblad_dim8_magnus2": {key: l8[1][key] for key in (
-            "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "eager_ms",
-            "sims_per_s")},
+            "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "bound_fp32_ms",
+            "order1_ms", "hermitian_ms", "eager_ms", "sims_per_s")},
     }, {
         "name": "horner_apply",
         "route": "cuda",

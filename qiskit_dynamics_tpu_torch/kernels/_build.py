@@ -40,8 +40,9 @@ NVCC_FLAGS = (
 NO_FMAD = frozenset({"adaptive_sweep", "sweep_magnus2", "chain_apply"})
 
 
-def _flags(name: str):
-    return NVCC_FLAGS + (("-fmad=false",) if name in NO_FMAD else ())
+def _flags(name: str, defines=()):
+    return (NVCC_FLAGS + (("-fmad=false",) if name in NO_FMAD else ())
+            + tuple(f"-D{d}" for d in defines))
 
 
 def _nvcc() -> str:
@@ -56,16 +57,19 @@ def _nvcc() -> str:
 
 
 @functools.lru_cache(maxsize=None)
-def load(name: str) -> ctypes.CDLL:
+def load(name: str, defines: tuple = ()) -> ctypes.CDLL:
     """Compile ``csrc/<name>.cu`` if its library is not built yet, and load it.
 
     The compiler's resource report (``-Xptxas -v``: registers, shared
     memory, spills) is kept beside the library as ``<library>.ptxas.txt``.
+    ``defines`` (preprocessor names) build another library from the same
+    source; the package's wrappers pass none.
     """
     src = SOURCE_DIR / f"{name}.cu"
-    flags = _flags(name)
+    flags = _flags(name, defines)
     digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"lib{name}_{digest}.so"
+    tag = "".join(f"-{d}" for d in defines)
+    lib_path = BUILD_DIR / f"lib{name}{tag}_{digest}.so"
     if not lib_path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")

@@ -18,13 +18,16 @@ steps, Horner Taylor action), laid out for ``32 < n <= 128``: each member's
 
 The shared static and operator tables are frame-rotated once per Gauss point
 (the rotation is elementwise-linear) and each member combines the rotated
-tables with its coefficients. With ``hermitian`` every bracket is one product,
-``[A, B] = P - P^H`` with ``P = A B``.
+tables with its coefficients. With ``hermitian`` the plain version forms every
+bracket from one product, ``[A, B] = P - P^H`` with ``P = A B``; the kernel
+does so at Magnus-2 and forms Magnus-3's brackets as ``A B - B A`` either way
+(the same function to roundoff; ``csrc/member_sweep.cu`` says why).
 
 Two implementations of the same arithmetic:
 
 - ``csrc/member_sweep.cu``: the kernel for Hopper, complex64 state, float64
-  frame phases. It fuses multiply-adds and sums its products in its own order.
+  frame phases, matrix products on the tensor cores in 3xTF32 (float32
+  accuracy). It sums its products in its own order.
 - :func:`sweep_expm_magnus2_member_plain`: eager PyTorch on any device,
   batched over members, complex64 or (for float64 coefficients) complex128.
   The two agree to float32 roundoff.
@@ -185,9 +188,11 @@ def _kernel_lib():
     lib = _build.load("member_sweep")
     lib.member_sweep_launch.argtypes = _ARGTYPES
     lib.member_sweep_launch.restype = ctypes.c_int
-    lib.member_sweep_smem_bytes.argtypes = [ctypes.c_int] * 4
+    lib.member_sweep_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.member_sweep_smem_bytes.restype = ctypes.c_size_t
-    lib.member_sweep_matrix_elems.argtypes = [ctypes.c_int] * 2
+    lib.member_sweep_blocks_per_sm.argtypes = [ctypes.c_int] * 2
+    lib.member_sweep_blocks_per_sm.restype = ctypes.c_int
+    lib.member_sweep_matrix_elems.argtypes = [ctypes.c_int]
     lib.member_sweep_matrix_elems.restype = ctypes.c_size_t
     lib.member_sweep_table_elems.argtypes = [ctypes.c_int] * 4
     lib.member_sweep_table_elems.restype = ctypes.c_size_t
@@ -217,14 +222,14 @@ def _launch_kernel(inputs: MemberInputs) -> torch.Tensor:
         )
     device = inputs.y0.device
     lib = _kernel_lib()
-    in_shared = lib.member_sweep_smem_bytes(n, k, magnus, 1) <= MAX_SHARED_BYTES
+    in_shared = lib.member_sweep_smem_bytes(n, k, 1) <= MAX_SHARED_BYTES
     if in_shared:
         grid, scratch = B, None
     else:
         sms = torch.cuda.get_device_properties(device).multi_processor_count
         grid = min(B, _SCRATCH_BLOCKS_PER_SM * sms)
         scratch = torch.empty(
-            (grid * lib.member_sweep_matrix_elems(n, magnus), 2), dtype=torch.float32,
+            (grid * lib.member_sweep_matrix_elems(n), 2), dtype=torch.float32,
             device=device,
         )
     table = torch.empty(

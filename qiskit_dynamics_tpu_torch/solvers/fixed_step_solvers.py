@@ -30,7 +30,7 @@ import torch
 from scipy.linalg import expm as scipy_expm
 
 from ..exceptions import DynamicsError
-from ..ops.expm import expm_taylor
+from ..ops.expm import expm_pade, expm_taylor
 from ..parallel.scan import propagator_scan
 from ..unified import to_numpy
 from .lanczos import jax_lanczos_expm, lanczos_expm
@@ -100,14 +100,15 @@ def scipy_expm_solver(generator, t_span, y0, max_dt, t_eval=None, magnus_order: 
 
 
 def _select_expm(expm_method: str, expm_order: int, expm_squarings: int):
-    """The expm: 'pade' is ``torch.linalg.matrix_exp`` (norm-adaptive), 'taylor'
-    the branch-free fixed-order scaling and squaring of
-    :func:`~qiskit_dynamics_tpu_torch.ops.expm.expm_taylor`, for fixed-step
-    solvers whose step norm is bounded."""
+    """The expm: 'pade' is the norm-adaptive Pade scaling and squaring of
+    :func:`~qiskit_dynamics_tpu_torch.ops.expm.expm_pade` (the algorithm of
+    ``jax.scipy.linalg.expm``), 'taylor' the branch-free fixed-order scaling
+    and squaring of :func:`~qiskit_dynamics_tpu_torch.ops.expm.expm_taylor`,
+    for fixed-step solvers whose step norm is bounded."""
     if expm_method == "taylor":
         return lambda a: expm_taylor(a, order=expm_order, squarings=expm_squarings)
     if expm_method == "pade":
-        return torch.linalg.matrix_exp
+        return expm_pade
     raise DynamicsError(f"expm_method {expm_method} not supported (use 'pade' or 'taylor').")
 
 

@@ -26,6 +26,7 @@ from scipy.linalg import expm as scipy_expm
 
 from ...exceptions import DynamicsError
 from ...ops.batched_linalg import expm_taylor_bol_ad
+from ...ops.expm import expm_pade
 from ...ops.chain_apply import chain_apply_bol_ad
 from ...parallel.scan import propagator_scan
 from ...signals import SignalList
@@ -399,8 +400,9 @@ class MagnusSolver(_PerturbativeSolver):
 
     Same structure as :class:`DysonSolver` but per step evaluates
     ``Udt @ expm(polynomial(c))``: ``scipy.linalg.expm`` in the host loop, one
-    batched ``torch.linalg.matrix_exp`` over all steps on the batched route
-    (``solve_sweep`` uses the Taylor ``expm`` kernel instead)."""
+    batched :func:`~qiskit_dynamics_tpu_torch.ops.expm.expm_pade` (the
+    algorithm of ``jax.scipy.linalg.expm``) over all steps on the batched
+    route (``solve_sweep`` uses the Taylor ``expm`` kernel instead)."""
 
     _expansion_method = "magnus"
 
@@ -411,7 +413,7 @@ class MagnusSolver(_PerturbativeSolver):
             def step_propagators(coeffs):
                 omega = torch.movedim(model.evaluate(coeffs), -1, 0)  # (T, n, n)
                 Udt_t = torch.as_tensor(Udt, device=omega.device).to(omega.dtype)
-                return Udt_t @ torch.linalg.matrix_exp(omega)
+                return Udt_t @ expm_pade(omega)
 
             yf = _perturbative_solve_batched(step_propagators, model, signals, y0, t0, n_steps)
         else:

@@ -3,9 +3,14 @@
 These tests need an NVIDIA GPU with nvcc; without one they skip. On the card
 run them with ``python -m pytest tests/test_torch_large_dim_cuda.py -m cuda
 --noconftest``. Both kernels fuse multiply-adds and sum their products in
-their own order, so they agree with the plain versions (``torch.matmul``) to
-float32 roundoff, not bit for bit: states stay within 1e-5 on norm-1 states
-(measured a few 1e-7). This file imports nothing of JAX.
+their own order (the member sweep's products run on the tensor cores in
+3xTF32, which keeps float32 accuracy), so they agree with the plain versions
+(``torch.matmul``) to float32 roundoff, not bit for bit: states stay within
+1e-5 on norm-1 states (measured a few 1e-7). The member-sweep dims 33, 37 and
+63 are ragged for its 16-row MMA tiles. Where the brackets dominate the step
+(generators of norm ~20, steps of 0.1) the member sweep is also held against
+the plain version in complex128 within 5e-6, which float32 products meet and
+single-pass TF32 products (~7e-5) fail. This file imports nothing of JAX.
 """
 import numpy as np
 import pytest
@@ -17,6 +22,7 @@ from qiskit_dynamics_tpu_torch.ops import member_sweep as msw
 pytestmark = pytest.mark.cuda
 
 TOL = 1e-5
+BRACKET_TOL = 5e-6  # chip_smoke.B3_BRACKET_TOL
 
 
 @pytest.fixture
@@ -27,14 +33,14 @@ def cuda():
 
 
 def member_problem(n: int, members: int, steps: int, magnus: int, hermitian: bool, device,
-                   k: int = 2):
-    """Seeded inputs of norm-1 states; generators of spectral radius ~3, so a
-    step of 0.05 moves the state by ~0.15."""
+                   k: int = 2, scale: float = 1.5):
+    """Seeded inputs of norm-1 states; generators of spectral radius ~2
+    ``scale`` (at 1.5 a step of 0.05 moves the state by ~0.15)."""
     gen = np.random.default_rng(1000 * magnus + n)
     a = gen.normal(size=(k + 1, n, n)) + 1j * gen.normal(size=(k + 1, n, n))
     if hermitian:
         a = -1j * (a + np.conj(np.transpose(a, (0, 2, 1)))) / 2
-    a = a * (1.5 / np.sqrt(n))
+    a = a * (scale / np.sqrt(n))
     w = 2 * np.pi * np.sort(gen.uniform(0.0, 5.0, n))
     coef = torch.as_tensor(gen.uniform(-1, 1, (steps, magnus, k, members)), device=device).float()
     y0 = gen.normal(size=(n, members)) + 1j * gen.normal(size=(n, members))
@@ -54,7 +60,9 @@ def horner_problem(n: int, members: int, device):
 
 @pytest.mark.parametrize("hermitian", [False, True])
 @pytest.mark.parametrize(
-    "magnus, n", [(2, 8), (2, 64), (2, 96), (2, 100), (2, 128), (3, 8), (3, 33), (3, 64)]
+    "magnus, n",
+    [(2, 8), (2, 33), (2, 37), (2, 64), (2, 96), (2, 100), (2, 128),
+     (3, 8), (3, 33), (3, 37), (3, 63), (3, 64)],
 )
 def test_member_kernel_matches_plain(cuda, magnus, n, hermitian):
     args = member_problem(n, 37, 5, magnus, hermitian, cuda)  # 37 members: a ragged batch
@@ -68,14 +76,44 @@ def test_member_kernel_matches_plain(cuda, magnus, n, hermitian):
     assert float((out - plain).abs().max()) <= TOL
 
 
+@pytest.mark.parametrize("hermitian", [False, True])
+@pytest.mark.parametrize("magnus, n", [(2, 37), (2, 64), (3, 37), (3, 64)])
+def test_member_kernel_bracket_dominated(cuda, magnus, n, hermitian):
+    """Anti-Hermitian generators of norm ~20, steps of 0.1: the brackets'
+    products carry much of each step, and the kernel stays within
+    BRACKET_TOL of the plain version in complex128."""
+    static, ops, omega, coef, y0 = member_problem(n, 37, 5, magnus, True, cuda, scale=10.0)
+    kwargs = dict(dt=0.1, t0=0.2, hermitian=hermitian, magnus=magnus)
+    out = msw.sweep_expm_magnus2_member(static, ops, omega, coef, y0, **kwargs)
+    exact = msw.sweep_expm_magnus2_member_plain(
+        msw.prepare_inputs(static, ops, omega, coef.double(), y0, **kwargs))
+    torch.cuda.synchronize()
+    assert exact.dtype == torch.complex128
+    assert float((out - exact).abs().max()) <= BRACKET_TOL
+
+
 def test_member_kernel_no_operators_and_many(cuda):
-    """k = 0 (static generator only) and k = 3."""
-    for k in (0, 3):
-        args = member_problem(16, 9, 4, 2, False, cuda, k=k)
-        out = msw.sweep_expm_magnus2_member(*args, dt=0.05)
-        plain = msw.sweep_expm_magnus2_member_plain(msw.prepare_inputs(*args, dt=0.05))
-        torch.cuda.synchronize()
-        assert float((out - plain).abs().max()) <= TOL
+    """k = 0 (static generator only) and k = 3, both rules."""
+    for magnus in (2, 3):
+        for k in (0, 3):
+            args = member_problem(16, 9, 4, magnus, False, cuda, k=k)
+            out = msw.sweep_expm_magnus2_member(*args, dt=0.05, magnus=magnus)
+            plain = msw.sweep_expm_magnus2_member_plain(
+                msw.prepare_inputs(*args, dt=0.05, magnus=magnus))
+            torch.cuda.synchronize()
+            assert float((out - plain).abs().max()) <= TOL
+
+
+@pytest.mark.parametrize("magnus, n", [(2, 37), (2, 64), (2, 100), (3, 37), (3, 64)])
+def test_member_kernel_one_operator(cuda, magnus, n):
+    """k = 1, the dim-8 rows' case (the generator build's items are then
+    whole entry pairs)."""
+    args = member_problem(n, 37, 5, magnus, False, cuda, k=1)
+    kwargs = dict(dt=0.05, t0=0.2, magnus=magnus)
+    out = msw.sweep_expm_magnus2_member(*args, **kwargs)
+    plain = msw.sweep_expm_magnus2_member_plain(msw.prepare_inputs(*args, **kwargs))
+    torch.cuda.synchronize()
+    assert float((out - plain).abs().max()) <= TOL
 
 
 def test_member_kernel_rejects(cuda):

@@ -9,14 +9,12 @@ Hamiltonian and a vectorized Lindblad qubit.
 
 Tolerances and their reasons:
 
-- Fixed-step methods, the Lanczos methods, the parallel methods and the
-  Taylor expm: 1e-10. The same step rules in float64 on both sides; only
-  the order of sums differs.
-- ``expm_method="pade"``: 5e-9. The JAX package's ``jax.scipy.linalg.expm``
-  is accurate to ~1e-16 per step; ``torch.linalg.matrix_exp``, the port's
-  Pade stand-in, picks a low Taylor degree at these step norms (|G dt| ~
-  0.03-0.3) and leaves ~2e-11 per step (measured against
-  ``scipy.linalg.expm``), ~1e-9 over a solve of 100 steps.
+- Fixed-step methods, the Lanczos methods, the parallel methods and both
+  expm methods: 1e-10. The same step rules in float64 on both sides; only
+  the order of sums differs. ``expm_method="pade"`` is the port's
+  :func:`~qiskit_dynamics_tpu_torch.ops.expm.expm_pade`, the algorithm of
+  the JAX package's ``jax.scipy.linalg.expm`` (the same degree and
+  squarings for every matrix), so it is held like the others.
 - ``tpu_dopri5``/``tpu_dop853``: the same number of right-hand-side
   evaluations (the same accepted and rejected steps) and states within 1e-10.
 - The perturbative precompute through a device method against the JAX
@@ -54,7 +52,7 @@ from qiskit_dynamics_tpu_torch.solvers.solver_utils import (
 from qiskit_dynamics_tpu_torch.utils import disable_metrics, enable_metrics, solve_metrics
 
 TOL = 1e-10
-PADE_TOL = 5e-9
+PADE_TOL = 1e-10
 T_EVAL = np.linspace(0.0, 1.0, 5)
 
 # (method, keywords, tolerance): every method of the table, on both models
