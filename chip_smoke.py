@@ -53,9 +53,13 @@ raises and exits non-zero:
    at n = 8, 33, 37, 64, Magnus-3 also at 63 and Magnus-2 also at 96, 100,
    128 (33, 37, 63 are ragged for its 16-row MMA tiles), 37 members, 5
    steps; Horner at
-   n = 64, 96, 100, 256 (cluster-resident kernel, 1 to 4 blocks per member)
-   and 512 (streaming kernel), orders 8 and 12, 37 members, and the
-   streaming kernel forced at n = 256. Both kernels fuse
+   n = 33, 64, 96, 100, 200, 256 (the resident kernel: persistent clusters
+   of 1 to 4 blocks, 33 unaligned, 200 split unevenly over four blocks) and
+   512 (streaming kernel), orders 8 and 12,
+   37 members (a ragged last round of the persistent walk), 67 members at
+   n = 256 (two rounds and a ragged third), n = 1,100 (3 members) and 2,048
+   (2), past the kernel's old cap of 1,024, and the streaming kernel forced
+   at n = 256. Both kernels fuse
    multiply-adds and sum in their own order (the member sweep's products
    in 3xTF32 on the tensor cores), so they agree with ``torch.matmul`` to
    float32 roundoff: within 1e-5 on norm-1 states. Then the member sweep at
@@ -78,7 +82,9 @@ raises and exits non-zero:
    max_dt = 0.08: 125 steps, Magnus-3) through ``sweep_engine="poly"``,
    whose ``poly_horner="auto"`` must launch the Horner kernel once per step:
    members 0 and 2,047 within 2e-6 of DOP853 (1e-12); the einsum route and
-   the eager engine are timed once each beside it.
+   the eager engine are timed once each beside it. The kernel's time at
+   Horner order 1 beside order 8 (the part split), its byte and operation
+   bounds, the clusters the card co-schedules and its ptxas report.
 
 11. the chain, batched product, Taylor expm and expm backward kernels against
    their plain versions on the card, on unit-norm inputs: n = 2, 4, 10, 16, 32,
@@ -161,6 +167,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 
@@ -193,6 +200,15 @@ B3_DIMS3 = (8, 33, 37, 63, 64)
 # products ~7e-5 (a CPU emulation; the card readings are in PERF.md).
 B3_BRACKET_CASES = ((2, 37), (2, 64), (3, 37), (3, 64))
 B3_BRACKET_TOL = 5e-6
+# phase 8's B4 cases, (n, order, members, streaming forced): the resident
+# kernel up to n = 256 (33 unaligned; 200 split unevenly over four blocks),
+# 37 members (a ragged last round of the persistent walk) and 67 at n = 256
+# (two rounds of the 30 clusters an H100 co-schedules there, and 7 more);
+# the streaming kernel at 512 and past the old cap of 1,024 (1,100 and
+# 2,048), and forced at 256
+B4_CASES = tuple(
+    (n, order, 37, False) for n in (33, 64, 96, 100, 200, 256, 512) for order in (8, 12)
+) + ((256, 8, 67, False), (1100, 8, 3, False), (2048, 8, 2, False), (256, 8, 37, True))
 L8_SWEEP = 10_240
 L8_T = 20.0
 L8_ROWS = ((3, 0.05, 4e-6), (2, 0.02, 2.5e-6))  # (magnus_order, max_dt, limit vs DOP853 1e-12)
@@ -788,9 +804,8 @@ def phase_large_dim_kernels(torch, msw, hp):
         log(f"  B3 bracket-dominated magnus {magnus} n={n:3d} hermitian {hermitian!s:5s} "
             f"vs complex128 {diff:.2e}")
     worst_horner = 0.0
-    cases = [(n, order, False) for n in (64, 96, 100, 256, 512) for order in (8, 12)]
-    for n, order, force_stream in cases + [(256, 8, True)]:
-        planes = horner_problem(torch, n, members)
+    for n, order, batch, force_stream in B4_CASES:
+        planes = horner_problem(torch, n, batch)
         if force_stream:
             ur, ui = hp._launch_kernel(*planes, order, force_stream=True)
         else:
@@ -798,10 +813,12 @@ def phase_large_dim_kernels(torch, msw, hp):
         plain_r, plain_i = hp.horner_twin_bm(*planes, order=order)
         torch.cuda.synchronize()
         diff = float(torch.maximum((ur - plain_r).abs().max(), (ui - plain_i).abs().max()))
-        check(diff <= B3_TOL, f"B4 n={n} order={order}: kernel vs plain {diff:.2e} > {B3_TOL}")
+        check(diff <= B3_TOL, f"B4 n={n} order={order} members={batch}: kernel vs plain "
+              f"{diff:.2e} > {B3_TOL}")
         worst_horner = max(worst_horner, diff)
-        log(f"  B4 n={n:3d} order {order:2d} {'streaming forced' if force_stream else ''} "
-            f"diff {diff:.2e}")
+        log(f"  B4 n={n:4d} order {order:2d} members {batch:3d} "
+            f"{'streaming forced' if force_stream else ''} diff {diff:.2e}")
+        del planes, ur, ui, plain_r, plain_i
     return worst_member, worst_horner, worst_bracket
 
 
@@ -978,8 +995,19 @@ def phase_lindblad256(torch, hp, Signal, lindblad_two_transmon_solver):
     MTr, MTi, vr, vi, order = cap.last
     n = vr.shape[1]
     kernel_ms = cuda_ms(torch, lambda: hp._launch_kernel(MTr, MTi, vr, vi, order), reps=5)
+    # the part split from the kernel's own arguments: at order 1 a member is
+    # its load, one exchange round (the state) and one mat-vec, not a chain
+    order1_ms = cuda_ms(torch, lambda: hp._launch_kernel(MTr, MTi, vr, vi, 1), reps=5)
     stream_ms = cuda_ms(
         torch, lambda: hp._launch_kernel(MTr, MTi, vr, vi, order, force_stream=True), reps=5)
+    lib = hp._kernel_lib()
+    cluster = lib.horner_apply_cluster(n)
+    clusters = lib.horner_apply_active_clusters(n, cluster)
+    ptxas = Path(lib._name + ".ptxas.txt")
+    resources = " | ".join(
+        line.split(":", 1)[-1].strip() for line in
+        (ptxas.read_text().splitlines() if ptxas.exists() else [])
+        if "registers" in line or "spill" in line)
     ur, ui = hp._launch_kernel(MTr, MTi, vr, vi, order)
     hp.horner_twin_bm(MTr, MTi, vr, vi, order=order)  # warm-up
     plain_ms, (plain_r, plain_i) = timed_ms(
@@ -987,8 +1015,10 @@ def phase_lindblad256(torch, hp, Signal, lindblad_two_transmon_solver):
     diff = float(torch.maximum((ur - plain_r).abs().max(), (ui - plain_i).abs().max()))
     check(diff <= B3_TOL, f"dim-256 horner kernel vs plain {diff:.2e} > {B3_TOL}")
     del MTr, MTi, plain_r, plain_i, cap
-    bound_ms, bound_by = bound(order * 8 * n * n * L256_SWEEP,
-                               4 * (2 * L256_SWEEP * n * n + 4 * L256_SWEEP * n))
+    flops = order * 8 * n * n * L256_SWEEP
+    nbytes = 4 * (2 * L256_SWEEP * n * n + 4 * L256_SWEEP * n)
+    bound_ms, bound_by = bound(flops, nbytes)
+    ops_ms = flops / PEAK_F32 * 1e3
 
     einsum_ms, out_e = timed_ms(torch, lambda: sweep(sweep_engine="poly", poly_horner="einsum"))
     route_diff = float((out_e - out).abs().max())
@@ -1000,8 +1030,11 @@ def phase_lindblad256(torch, hp, Signal, lindblad_two_transmon_solver):
         f"phase 10 Lindblad dim 256: solve_dim {n}, {L256_SWEEP} members, {steps} steps "
         f"(T={L256_T}, max_dt={L256_MAX_DT}), Magnus-3, sweep_engine poly, poly_horner auto -> "
         f"kernel: {L256_SWEEP / per_call:.1f} sims/s ({reps} calls in {block_s:.2f} s, "
-        f"{per_call * 1e3:.1f} ms/call); horner kernel {kernel_ms:.3f} ms per launch (bound "
-        f"{bound_ms:.3f} ms, {bound_by}; its streaming variant, not on this path, "
+        f"{per_call * 1e3:.1f} ms/call); horner kernel {kernel_ms:.3f} ms per launch at order "
+        f"{order}, {order1_ms:.3f} ms at order 1 (bound {bound_ms:.3f} ms, {bound_by}, "
+        f"{bound_ms / kernel_ms:.0%}; the operations alone {ops_ms:.3f} ms at the FP32 rate, "
+        f"{ops_ms / kernel_ms:.0%}; clusters of {cluster} blocks, {clusters} co-resident; "
+        f"ptxas {resources}; its streaming variant, not on this path, "
         f"{stream_ms:.3f} ms), plain {plain_ms:.3f} ms; kernel vs plain {diff:.2e} "
         f"(<= {B3_TOL}); einsum route {einsum_ms:.1f} ms/call "
         f"({L256_SWEEP / einsum_ms * 1e3:.1f} sims/s, one call, vs kernel route {route_diff:.2e}); "
@@ -1014,7 +1047,8 @@ def phase_lindblad256(torch, hp, Signal, lindblad_two_transmon_solver):
     return dict(launches=launches, max_abs_err=diff, ms=kernel_ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, sims_per_s=L256_SWEEP / per_call,
                 einsum_call_ms=einsum_ms, eager_call_ms=xla_ms, max_err=err,
-                streaming_ms=stream_ms)
+                streaming_ms=stream_ms, order1_ms=order1_ms, clusters_resident=clusters,
+                bound_ops_ms=ops_ms)
 
 
 # --------------------------------------------------------------------------
@@ -1995,9 +2029,9 @@ def main() -> int:
           f"{B3_DIMS2} and Magnus-3 x n in {B3_DIMS3}, hermitian on and off (max diff "
           f"{b3_diff:.2e}); member sweep bracket-dominated at (magnus, n) in "
           f"{B3_BRACKET_CASES}, hermitian on and off, vs complex128 {b3_bracket:.2e} (<= "
-          f"{B3_BRACKET_TOL}; single-pass TF32 fails it); horner n in (64, 96, 100, 256, 512) x orders (8, 12) and the "
-          f"streaming kernel at 256 (max diff "
-          f"{b4_diff:.2e}); all <= {B3_TOL} (float32 roundoff: the kernels sum in another "
+          f"{B3_BRACKET_TOL}; single-pass TF32 fails it); horner (n, order, members, "
+          f"streaming forced) in {B4_CASES} (max diff {b4_diff:.2e}); all <= {B3_TOL} "
+          f"(float32 roundoff: the kernels sum in another "
           f"order than torch.matmul) in {time.perf_counter() - start:.1f} s", flush=True)
 
     # phase 9: Lindblad dim 8, both rows, one set of host references
@@ -2110,6 +2144,9 @@ def main() -> int:
         **{key: l256[key] for key in (
             "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None,
+        "order1_ms": l256["order1_ms"],
+        "clusters_resident": l256["clusters_resident"],
+        "bound_ops_ms": l256["bound_ops_ms"],
         "sims_per_s": l256["sims_per_s"],
         "streaming_variant_ms": l256["streaming_ms"],
         "einsum_route_call_ms": l256["einsum_call_ms"],

@@ -10,10 +10,14 @@ is kept so a reader finds it). The polynomial engine
 
 Written as batched matmuls, every one of the ``p`` iterations is its own pass
 over the ``(B, n, n)`` step matrices in device memory. The kernel
-(``csrc/horner_apply.cu``) reads each matrix once: a member's planes stay in
-the shared memory of a thread-block cluster (1 to 8 blocks, sized by the
-float32 element width) for all ``p`` iterations; above ``n ~ 470``, where
-eight blocks cannot hold them, a streaming variant re-reads them.
+(``csrc/horner_apply.cu``) reads each matrix once up to ``n = 256``:
+persistent thread-block clusters (1 to 8 blocks per member) walk over the
+members, each keeping a member's planes in registers for all ``p``
+iterations while the next member's planes stream into shared memory, and the
+blocks of a cluster trade each iteration's ``u`` through distributed shared
+memory. Above ``n = 256``, where eight blocks cannot hold a member in
+registers, a streaming variant re-reads the matrix in every iteration (any
+``n`` up to ``horner_apply_max_n()`` of the kernel library, 14,528).
 
 Inputs are the TRANSPOSED matrices ``MT[b] = M_b^T`` as real and imaginary
 planes: the caller gets the transpose for free by transposing its host-side
@@ -37,9 +41,6 @@ import ctypes
 import torch
 
 __all__ = ["horner_apply_bm", "horner_apply_bm_ad", "horner_twin_bm"]
-
-MAX_N = 1024  # the kernel's cap on the state dimension (one thread per row)
-
 
 def _check(MTr, MTi, vr, vi):
     B, n = vr.shape
@@ -92,6 +93,10 @@ def _kernel_lib():
     lib.horner_apply_launch.restype = ctypes.c_int
     lib.horner_apply_cluster.argtypes = [ctypes.c_int]
     lib.horner_apply_cluster.restype = ctypes.c_int
+    lib.horner_apply_active_clusters.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.horner_apply_active_clusters.restype = ctypes.c_int
+    lib.horner_apply_max_n.argtypes = []
+    lib.horner_apply_max_n.restype = ctypes.c_int
     lib.horner_apply_error_string.argtypes = [ctypes.c_int]
     lib.horner_apply_error_string.restype = ctypes.c_char_p
     return lib
@@ -99,18 +104,22 @@ def _kernel_lib():
 
 def _launch_kernel(MTr, MTi, vr, vi, order: int, force_stream: bool = False):
     """Launch the resident kernel, or the streaming one where the matrix
-    cannot stay on chip (``force_stream``: always, for the tests)."""
+    cannot stay on chip (``force_stream``: always, for the tests and the
+    timing scripts)."""
     B, n = vr.shape
     if MTr.dtype != torch.float32:
         raise TypeError(
             "the CUDA horner_apply kernel runs float32 only; its complex128 mode is queued "
             "(ROADMAP, left from A8)."
         )
-    if n > MAX_N:
-        raise ValueError(f"the CUDA horner_apply kernel takes n <= {MAX_N}; got n={n}.")
+    lib = _kernel_lib()
+    if n > lib.horner_apply_max_n():
+        raise ValueError(
+            f"the CUDA horner_apply kernel takes n <= {lib.horner_apply_max_n()} (its streaming "
+            f"variant keeps two vectors of n complex entries in shared memory); got n={n}."
+        )
     MTr, MTi, vr, vi = (x.contiguous() for x in (MTr, MTi, vr, vi))
     ur, ui = torch.empty_like(vr), torch.empty_like(vi)
-    lib = _kernel_lib()
     with torch.cuda.device(vr.device):
         stream = torch.cuda.current_stream(vr.device).cuda_stream
         code = lib.horner_apply_launch(

@@ -6,7 +6,9 @@ run them with ``python -m pytest tests/test_torch_large_dim_cuda.py -m cuda
 their own order (the member sweep's products run on the tensor cores in
 3xTF32, which keeps float32 accuracy), so they agree with the plain versions
 (``torch.matmul``) to float32 roundoff, not bit for bit: states stay within
-1e-5 on norm-1 states (measured a few 1e-7). The member-sweep dims 33, 37 and
+1e-5 on norm-1 states (measured a few 1e-7). The Horner kernel is also
+held at n = 1,100 and 2,048 (past the old cap of 1,024) and inside the
+polynomial sweep at n = 1,040. The member-sweep dims 33, 37 and
 63 are ragged for its 16-row MMA tiles. Where the brackets dominate the step
 (generators of norm ~20, steps of 0.1) the member sweep is also held against
 the plain version in complex128 within 5e-6, which float32 products meet and
@@ -18,6 +20,7 @@ import torch
 
 from qiskit_dynamics_tpu_torch.ops import horner_pallas as hp
 from qiskit_dynamics_tpu_torch.ops import member_sweep as msw
+from qiskit_dynamics_tpu_torch.ops import polynomial_sweep as psw
 
 pytestmark = pytest.mark.cuda
 
@@ -130,11 +133,14 @@ def test_member_kernel_rejects(cuda):
         msw.sweep_expm_magnus2_member(*args, dt=0.1, magnus=3)
 
 
-@pytest.mark.parametrize("order", [8, 12])
-@pytest.mark.parametrize("n", [8, 33, 64, 96, 100, 256, 320, 512])
+@pytest.mark.parametrize("order", [1, 8, 12, 20])
+@pytest.mark.parametrize("n", [8, 33, 64, 96, 100, 129, 136, 200, 256, 320, 512])
 def test_horner_kernel_matches_plain(cuda, n, order):
-    """n <= 320 run the cluster-resident kernel (1, 2, 4 or 8 blocks per
-    member; 33 is the unaligned, scalar-load case), 512 the streaming one."""
+    """n <= 256 run the resident kernel (persistent clusters of 1 to 4 blocks;
+    33 and 129 are unaligned, loaded by cp.async instead of tensor copies;
+    136 and 200 split their columns unevenly over four blocks), 320 and 512
+    the streaming one. 37 members: a batch that is not a multiple of the
+    clusters the card co-schedules."""
     planes = horner_problem(n, 37, cuda)
     before = hp.horner_apply_bm.launches
     ur, ui = hp.horner_apply_bm(*planes, order=order)
@@ -143,6 +149,57 @@ def test_horner_kernel_matches_plain(cuda, n, order):
     assert hp.horner_apply_bm.launches == before + 1
     assert ur.shape == ui.shape == (37, n)
     assert float(torch.maximum((ur - plain_r).abs().max(), (ui - plain_i).abs().max())) <= TOL
+
+
+@pytest.mark.parametrize("members, n", [(1, 256), (3, 256), (2048, 256), (1, 8), (3, 33),
+                                        (1000, 64), (31, 100)])
+def test_horner_kernel_persistent_walk(cuda, members, n):
+    """Batches smaller than, equal to a few and many times (with a ragged last
+    round) the clusters the card co-schedules: each cluster walks its members."""
+    planes = horner_problem(n, members, cuda)
+    ur, ui = hp.horner_apply_bm(*planes, order=8)
+    plain_r, plain_i = hp.horner_twin_bm(*planes, order=8)
+    torch.cuda.synchronize()
+    assert float(torch.maximum((ur - plain_r).abs().max(), (ui - plain_i).abs().max())) <= TOL
+
+
+@pytest.mark.parametrize("members, n", [(3, 1100), (2, 2048)])
+def test_horner_kernel_above_1024(cuda, members, n):
+    """Dimensions past one thread per output (the kernel refused n > 1,024
+    before): the streaming kernel, each thread owning outputs i, i + 1,024."""
+    planes = horner_problem(n, members, cuda)
+    before = hp.horner_apply_bm.launches
+    ur, ui = hp.horner_apply_bm(*planes, order=8)
+    plain_r, plain_i = hp.horner_twin_bm(*planes, order=8)
+    torch.cuda.synchronize()
+    assert hp.horner_apply_bm.launches == before + 1
+    assert float(torch.maximum((ur - plain_r).abs().max(), (ui - plain_i).abs().max())) <= TOL
+
+
+def test_poly_sweep_auto_route_above_1024(cuda):
+    """``sweep_expm_magnus_poly(horner="auto")`` at n = 1,040 (solve_dim of a
+    dimension-33 Lindblad model is 1,089) runs through the kernel and agrees
+    with the einsum route: Magnus-2, one operator, 2 steps, 4 members."""
+    n, members, steps = 1040, 4, 2
+    gen = np.random.default_rng(1040)
+
+    def hermitian():
+        a = gen.normal(size=(n, n)) + 1j * gen.normal(size=(n, n))
+        return (a + a.conj().T) / (2 * np.sqrt(n))
+
+    static, ops = -1j * hermitian(), -1j * hermitian()[None]
+    coef = gen.uniform(-1, 1, (steps, 2, 1, members)).astype(np.float32)
+    y0 = gen.normal(size=(n, members)) + 1j * gen.normal(size=(n, members))
+    y0 = torch.as_tensor(y0 / np.linalg.norm(y0, axis=0), device=cuda)
+    coef = torch.as_tensor(coef, device=cuda)
+    before = hp.horner_apply_bm.launches
+    out = psw.sweep_expm_magnus_poly(static, ops, None, coef, y0, dt=0.1, horner="auto")
+    torch.cuda.synchronize()
+    assert hp.horner_apply_bm.launches == before + steps
+    ref = psw.sweep_expm_magnus_poly(static, ops, None, coef, y0, dt=0.1, horner="einsum")
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape == (n, members)
+    assert float((out - ref).abs().max()) <= TOL
 
 
 @pytest.mark.parametrize("n", [64, 100, 256])
@@ -171,3 +228,8 @@ def test_horner_kernel_rejects(cuda):
         hp.horner_apply_bm(*[x.double() for x in planes])
     with pytest.raises(ValueError, match="shape mismatch"):
         hp.horner_apply_bm(planes[0], planes[1], planes[2], planes[3][:, :4])
+    n = hp._kernel_lib().horner_apply_max_n() + 1  # 1.7 GB of planes, never filled
+    big = [torch.empty((1, n, n), device=cuda) for _ in range(2)]
+    big += [torch.empty((1, n), device=cuda) for _ in range(2)]
+    with pytest.raises(ValueError, match=f"n <= {n - 1}"):
+        hp.horner_apply_bm(*big)
