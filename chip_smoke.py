@@ -113,19 +113,23 @@ raises and exits non-zero:
    lanes) beside ``torch.einsum``.
 
 14. the FP64 kernels against their plain versions on the card, unit-norm
-   states: the Magnus sweep B8 at n = 2, 4, 9, 16, 27, 32, Magnus-2 and -3,
-   ``hermitian`` on and off, a uniform grid and a non-uniform one with
-   trajectory slots, 37 members in launches of 16 (a ragged last launch and
-   block), within 1e-12; the chain in complex128 bit for bit and the Taylor
-   expm in complex128 within 1e-12, at phase 11's shapes.
+   states: the Magnus sweep B8 at n = 2, 4, 5, 9, 13, 16, 27, 31, 32,
+   Magnus-2 and -3, ``hermitian`` on and off, a uniform grid and a
+   non-uniform one with trajectory slots, 37 members in launches of 16 (a
+   ragged last launch and block); 1, 17 and 2,049 members (one past a full
+   chunk) at n = 16; node times near 330, so that the phase arguments reach
+   ~1e4 rad; n = 32 over 300 steps, where the call takes the (cos, sin)
+   table: all within 1e-12; the chain in complex128 bit for bit and the
+   Taylor expm in complex128 within 1e-12, at phase 11's shapes.
 15. the df32 CR rows at full width: ``cr_solver()`` (n = 16, frame diag(H0),
    RWA) through ``Solver.solve_sweep(method="fused_magnus2",
    precision="df32")`` over 10,000 amplitudes, T = 100, max_dt = 0.2 (500
    steps of Magnus-3, Taylor order 12): B8 must launch; the complex states
    at members 0, 4,999 and 9,999 within 1e-8 of the port's host DOP853
    (atol = rtol = 1e-12); sims/s from a steady block; B8 alone and its plain
-   version at that shape. Then the Gaussian envelope (width T / 5), 2 probes
-   within 1e-8.
+   version at that shape, its members (warps) resident per SM and the count
+   of DMMA (FP64 tensor-core) instructions in its library's SASS, which must
+   not be 0. Then the Gaussian envelope (width T / 5), 2 probes within 1e-8.
 16. the Chebyshev rows: ``solve_sweep(method="chebyshev")`` over the same
    10,000 amplitudes (tol 1e-9, min_level 4, max_dt 0.2; phase 15's
    references), and the 100 x 100 amplitude x detuning map (detuning
@@ -163,6 +167,9 @@ last line is ``{"ok": true, "device": {...}}``. Nothing of JAX is imported.
 import dataclasses
 import json
 import math
+import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -225,8 +232,11 @@ PT_KERNEL_TOL = 1e-5  # batched_linalg kernels vs torch.einsum: float32 roundoff
 PT_DIMS = (2, 4, 10, 16, 32, 48)
 PT_BATCHES = (37, 1000)
 PT_EXPM_CASES = ((8, 0), (8, 2), (12, 0), (12, 1), (12, 2))
-DF_DIMS = (2, 4, 9, 16, 27, 32)
+DF_DIMS = (2, 4, 5, 9, 13, 16, 27, 31, 32)  # B8 pads n to a multiple of 8
 DF_MEMBERS, DF_STEPS = 37, 12  # phase 14's kernel checks: 37 members in launches of 16
+# phase 14's member counts at n = 16, default chunks of 2,048: one member; 17
+# (one member per block, the Chebyshev row's launch); one past a full chunk
+DF_MEMBER_COUNTS = (1, 17, 2049)
 DF_KERNEL_TOL = 1e-12  # FP64 kernels vs their plain versions, unit-norm states
 DF_SWEEP = 10_000
 DF_MAX_DT = 0.2  # 500 steps of Magnus-3 over T_MAIN
@@ -1370,10 +1380,12 @@ def phase_perturbative_row(torch, phase, name, make_solver, Signal, ca, bl, refs
 # --------------------------------------------------------------------------
 # phase 14: the FP64 kernels against their plain versions
 # --------------------------------------------------------------------------
-def df_kernel_problem(torch, n, magnus_order, uniform, device):
+def df_kernel_problem(torch, n, magnus_order, uniform, device, members=DF_MEMBERS,
+                      steps=DF_STEPS, t0=3.0):
     """Seeded inputs of kernel B8 at state dimension n: anti-Hermitian
-    frame-basis operators (k = 2), an antisymmetric frame matrix, Gauss-node
-    coefficients, unit-norm states, a uniform or non-uniform grid."""
+    frame-basis operators (k = 2), an antisymmetric frame matrix (|omega| <
+    30), Gauss-node coefficients, unit-norm states, a uniform or non-uniform
+    grid from t0."""
     from qiskit_dynamics_tpu_torch.ops.df_sweep import MAGNUS_NODES
 
     gen = np.random.default_rng(1000 * n + 10 * magnus_order + int(uniform))
@@ -1383,13 +1395,13 @@ def df_kernel_problem(torch, n, magnus_order, uniform, device):
         return -1j * scale * (a + a.conj().T) / (2 * np.sqrt(n))
 
     w = gen.uniform(0.0, 30.0, n)
-    y0 = gen.normal(size=(n, DF_MEMBERS)) + 1j * gen.normal(size=(n, DF_MEMBERS))
+    y0 = gen.normal(size=(n, members)) + 1j * gen.normal(size=(n, members))
     nodes = len(MAGNUS_NODES[magnus_order])
-    dt = 0.05 if uniform else 0.05 * (1.0 + 0.5 * np.sin(np.arange(DF_STEPS)))
+    dt = 0.05 if uniform else 0.05 * (1.0 + 0.5 * np.sin(np.arange(steps)))
     args = (anti_hermitian(2.0), np.stack([anti_hermitian(1.0) for _ in range(2)]),
-            w[None, :] - w[:, None], gen.normal(size=(DF_STEPS, nodes, 2, DF_MEMBERS)),
+            w[None, :] - w[:, None], gen.normal(size=(steps, nodes, 2, members)),
             torch.as_tensor(y0 / np.linalg.norm(y0, axis=0), device=device))
-    return args, dict(dt=dt, t0=3.0, magnus_order=magnus_order)
+    return args, dict(dt=dt, t0=t0, magnus_order=magnus_order)
 
 
 def phase_df_kernels(torch, dfs, ca, bl, device="cuda"):
@@ -1419,6 +1431,29 @@ def phase_df_kernels(torch, dfs, ca, bl, device="cuda"):
                         worst["df"] = max(worst["df"], diff)
         log(f"  B8 n={n:2d}: Magnus-2/3 x hermitian x (uniform, non-uniform + slots) max diff "
             f"{worst['df']:.2e} (running)")
+    # member counts; phase arguments near 1e4 rad; the (cos, sin) table layout
+    extra = [(f"{members} members", dict(n=16, members=members), True, None)
+             for members in DF_MEMBER_COUNTS]
+    extra += [("node times near 330", dict(n=13, uniform=False, t0=330.0), hermitian, 16)
+              for hermitian in (False, True)]
+    extra.append(("n=32 over 300 steps", dict(n=32, members=5, steps=300), True, None))
+    for name, problem, hermitian, chunk_b in extra:
+        problem = {"uniform": True, **problem}
+        args, kwargs = df_kernel_problem(torch, problem.pop("n"), 3, problem.pop("uniform"),
+                                         device, **problem)
+        kwargs["hermitian"] = hermitian
+        inputs = dfs.prepare_df_inputs(*args, **kwargs)
+        before = dfs.sweep_expm_magnus_df.launches
+        out = dfs.sweep_expm_magnus_df(*args, **kwargs, **({} if chunk_b is None else
+                                                            {"chunk_b": chunk_b}))
+        plain = dfs.sweep_expm_magnus_df_plain(inputs)[0]
+        torch.cuda.synchronize()
+        diff = float((out - plain).abs().max())
+        launches = dfs.sweep_expm_magnus_df.launches - before
+        check(launches == -(-inputs.batch // (chunk_b or 2048)) and diff <= DF_KERNEL_TOL,
+              f"B8 {name}: kernel vs plain {diff:.2e}, {launches} launches")
+        worst["df"] = max(worst["df"], diff)
+    check(not dfs.rotated_tables(32, 2, 3, 300), "the n=32 case did not take the (cos, sin) table")
     for n in PT_DIMS:
         for B in PT_BATCHES:
             for T in (1, 7):
@@ -1486,6 +1521,16 @@ def df_flops_per_member_step(n: int, k: int, n_nodes: int, hermitian: bool, orde
     return products * 8 * n**3, build + elementwise + order * (8 * n * n + 4 * n)
 
 
+def sass_count(library: str, opcode: str) -> int:
+    """Instructions named ``opcode`` in the SASS of a built kernel library
+    (``cuobjdump -sass``)."""
+    tool = shutil.which("cuobjdump") or str(
+        Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump")
+    sass = subprocess.run([tool, "-sass", library], capture_output=True, text=True,
+                          check=True).stdout
+    return sum(1 for line in sass.splitlines() if re.search(rf"\b{opcode}\b", line))
+
+
 def df_bound(inputs):
     n, k, T, B = inputs.n, inputs.k, inputs.steps, inputs.batch
     nn = inputs.taus.shape[1]
@@ -1535,6 +1580,17 @@ def phase_df32(torch, dfs, Signal, solver, w1, ref_solver, y0, device="cuda"):
     diff = float((kernel_out - plain[0]).abs().max())
     check(diff <= DF_KERNEL_TOL, f"df32 row: B8 vs plain {diff:.2e} > {DF_KERNEL_TOL}")
     bound_ms, bound_by = df_bound(inputs)
+    n_nodes = inputs.taus.shape[1]
+    lib = dfs._kernel_lib()
+    shape = dfs.launch_shape(inputs.n, inputs.k, n_nodes, inputs.hermitian,
+                             min(chunk_b, inputs.batch))
+    members_per_sm = shape.members_per_block * lib.df_magnus_sweep_active_blocks(
+        inputs.n, inputs.k, n_nodes, int(inputs.hermitian), shape.members_per_block)
+    dmma = sass_count(lib._name, "DMMA")
+    check(dmma > 0, "B8's library holds no DMMA instruction: its products are not on the FP64 "
+                    "tensor cores")
+    layout = "rotated" if dfs.rotated_tables(inputs.n, inputs.k, n_nodes, inputs.steps) else (
+        "(cos, sin)")
     row, gauss = rows["df32"], rows["df32_gauss"]
     print(
         f"phase 15 df32 CR rows: cr_solver n={inputs.n}, {DF_SWEEP} members, T={T_MAIN}, "
@@ -1545,13 +1601,16 @@ def phase_df32(torch, dfs, Signal, solver, w1, ref_solver, y0, device="cuda"):
         f"df32_max_err {row['max_err']:.2e} (<= {DF_TOL}, {PROBES} probes vs DOP853 1e-12 at "
         f"{row['ref_s']:.2f} s/sim); B8 {kernel_ms:.3f} ms over {len(range(0, DF_SWEEP, chunk_b))} "
         f"launches (bound {bound_ms:.3f} ms, {bound_by}), plain {plain_ms:.1f} ms, kernel vs "
-        f"plain {diff:.2e}; launches {row['launches']}; Gaussian envelope: df32_gauss_sims_per_s "
+        f"plain {diff:.2e}, {members_per_sm} members = {members_per_sm} warps resident per SM "
+        f"({shape.members_per_block} per block), {dmma} DMMA instructions in its SASS, "
+        f"{layout} tables; launches {row['launches']}; Gaussian envelope: df32_gauss_sims_per_s "
         f"{gauss['sims_per_s']:.1f}, df32_gauss_max_err {gauss['max_err']:.2e} (2 probes); "
         f"launches {gauss['launches']}",
         flush=True,
     )
     return dict(launches=row["launches"], max_abs_err=diff, ms=kernel_ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, rows=rows)
+                bound_ms=bound_ms, bound_by=bound_by, rows=rows, members_per_sm=members_per_sm,
+                dmma_sass_count=dmma)
 
 
 def phase_chebyshev(torch, dfs, Signal, solver, w1, ref_solver, y0, df_refs, device="cuda"):
@@ -2071,7 +2130,9 @@ def main() -> int:
     df_diffs = phase_df_kernels(torch, dfs, ca, bl)
     print(f"phase 14 df_magnus_sweep, and chain_apply and expm_taylor_bol in complex128, vs plain: "
           f"B8 n in {DF_DIMS} x Magnus-2/3 x hermitian on/off x (uniform dt; non-uniform dt with "
-          f"eval_slots), {DF_MEMBERS} members in launches of 16 (max diff {df_diffs['df']:.2e}); "
+          f"eval_slots), {DF_MEMBERS} members in launches of 16, {DF_MEMBER_COUNTS} members at "
+          f"n = 16, phases near 1e4 rad, the (cos, sin) table at n = 32 (max diff "
+          f"{df_diffs['df']:.2e}); "
           f"chain n in {PT_DIMS} x lanes in {PT_BATCHES} x 1 and 7 steps, bitwise equal; expm "
           f"at (order, squarings) in {PT_EXPM_CASES} (max diff {df_diffs['expm']:.2e}); all <= "
           f"{DF_KERNEL_TOL} in {time.perf_counter() - start:.1f} s", flush=True)
@@ -2197,6 +2258,8 @@ def main() -> int:
         **{key: df32[key] for key in (
             "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None,
+        "members_per_sm": df32["members_per_sm"],
+        "dmma_sass_count": df32["dmma_sass_count"],
         "df32_sims_per_s": df32["rows"]["df32"]["sims_per_s"],
         "df32_max_err": df32["rows"]["df32"]["max_err"],
         "df32_gauss_sims_per_s": df32["rows"]["df32_gauss"]["sims_per_s"],

@@ -14,7 +14,10 @@ Two implementations of the same arithmetic:
 
 - ``csrc/df_magnus_sweep.cu``: the kernel for Hopper, complex128, one kernel
   for both of the JAX package's engines (per-step ``dt``, trajectory slots,
-  the one-product anti-Hermitian commutator, any batch size).
+  the one-product anti-Hermitian commutator, any batch size): one warp per
+  member, the rule's products on the FP64 tensor cores, the frame-rotated
+  tables formed once per call by a first kernel (:func:`rotated_tables`
+  picks their layout by size, :func:`launch_shape` the members per block).
 - :func:`sweep_expm_magnus_df_plain`: eager complex128 PyTorch, one step at a
   time, batched over members, on any device.
 
@@ -55,10 +58,13 @@ MAGNUS_NODES = {
     3: np.array([0.5 - np.sqrt(15) / 10, 0.5, 0.5 + np.sqrt(15) / 10]),
 }
 
-MAX_N = 32  # the kernel keeps a member's matrices in shared memory
-MAX_THREADS = 512  # the kernel's launch bound
-SPLIT = 4  # the kernel's threads per (row, member)
-MAX_MEMBERS_PER_BLOCK = 8  # a row's SPLIT threads share a warp
+MAX_N = 32  # the kernel pads n with zeros to 8, 16, 24 or 32
+MAX_MEMBERS_PER_BLOCK = 8  # warps per block, one member each
+SMS = 132  # streaming multiprocessors of an H100 SXM
+SM_SHARED_BYTES = 233472  # shared memory of one SM (228 KB)
+BLOCK_RESERVED_BYTES = 1024  # shared memory the runtime keeps per block
+MAX_BLOCKS_PER_SM, MAX_WARPS_PER_SM = 32, 64
+ROTATED_TABLE_BYTES = 40 << 20  # the rotated tables' limit; the (cos, sin) table above it
 _TWO_PI = 2.0 * np.pi
 
 
@@ -308,39 +314,86 @@ def _kernel_lib():
     from ..kernels import _build
 
     lib = _build.load("df_magnus_sweep")
-    lib.df_magnus_sweep_launch.argtypes = [_PTR] * 10 + [ctypes.c_int] * 10 + [_PTR]
+    lib.df_magnus_sweep_tables.argtypes = [_PTR] * 6 + [ctypes.c_int] * 5 + [_PTR]
+    lib.df_magnus_sweep_tables.restype = ctypes.c_int
+    lib.df_magnus_sweep_launch.argtypes = [_PTR] * 8 + [ctypes.c_int] * 11 + [_PTR]
     lib.df_magnus_sweep_launch.restype = ctypes.c_int
+    lib.df_magnus_sweep_product.argtypes = [_PTR] * 3 + [ctypes.c_int] * 2 + [_PTR]
+    lib.df_magnus_sweep_product.restype = ctypes.c_int
     lib.df_magnus_sweep_smem_bytes.argtypes = [ctypes.c_int] * 5
     lib.df_magnus_sweep_smem_bytes.restype = ctypes.c_size_t
+    lib.df_magnus_sweep_active_blocks.argtypes = [ctypes.c_int] * 5
+    lib.df_magnus_sweep_active_blocks.restype = ctypes.c_int
     lib.df_magnus_sweep_error_string.argtypes = [ctypes.c_int]
     lib.df_magnus_sweep_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def members_per_block(lib, n: int, k: int, n_nodes: int, hermitian: bool) -> int:
-    """Members per block: the power of two up to ``MAX_MEMBERS_PER_BLOCK``
-    that keeps the most warps resident per SM (228 KB of shared memory, 2,048
-    threads, 32 blocks), the larger on a tie; at most ``MAX_THREADS`` threads
-    (``SPLIT`` per row and member) a block."""
-    best, best_warps = 0, -1
-    mb = MAX_MEMBERS_PER_BLOCK
-    while mb >= 1:
-        threads = SPLIT * n * mb
-        smem = lib.df_magnus_sweep_smem_bytes(n, k, n_nodes, int(hermitian), mb)
-        if threads <= MAX_THREADS and smem <= MAX_SHARED_BYTES:
-            blocks = min(233472 // (smem + 1024), 2048 // threads, 32)
-            warps = blocks * ((threads + 31) // 32)
-            if warps > best_warps:
-                best, best_warps = mb, warps
-        mb //= 2
-    if best == 0:
+def padded(n: int) -> int:
+    """The kernel's padded dimension: n rounded up to a multiple of 8 (the
+    FP64 tensor-core tile)."""
+    return -(-n // 8) * 8
+
+
+def member_smem_bytes(n: int, k: int, n_nodes: int) -> int:
+    """Shared memory of one member (warp) of the kernel: three complex planes
+    of padded(n)^2 (five for Magnus-3 above 16, whose owned matrices then
+    leave the registers), two Horner vectors and the step's n_nodes k
+    coefficients. ``df_magnus_sweep_smem_bytes`` of the library is mb times
+    this."""
+    np_ = padded(n)
+    planes = 3 + (2 if n_nodes == 3 and np_ > 16 else 0)
+    return 16 * (planes * np_ * np_ + 2 * np_ + (n_nodes * k + 1) // 2)
+
+
+def rotated_tables(n: int, k: int, n_nodes: int, T: int) -> bool:
+    """The call's table layout, by size: the frame-rotated operators (T,
+    n_nodes, k + 1, np, np) while they take at most ``ROTATED_TABLE_BYTES``,
+    else the (cos, sin) table (T, n_nodes, np, np)."""
+    return T * n_nodes * (k + 1) * padded(n) ** 2 * 16 <= ROTATED_TABLE_BYTES
+
+
+@dataclass(frozen=True)
+class LaunchShape:
+    members_per_block: int
+    blocks: int
+    members_per_sm: int  # by the shared-memory and block reckoning (registers not counted)
+    smem_bytes: int  # of one block
+
+
+def launch_shape(n: int, k: int, n_nodes: int, hermitian: bool, B: int) -> LaunchShape:
+    """Blocks of the kernel for a launch of B members (one warp each).
+
+    Members per block: the power of two up to ``MAX_MEMBERS_PER_BLOCK`` that
+    keeps the most members resident per SM (228 KB of shared memory with 1 KB
+    kept per block, 32 blocks, 64 warps), the smaller on a tie; then halved
+    while the launch would have fewer blocks than the card has SMs, so that a
+    small launch spreads (one member per block below ``SMS`` members). The
+    members of a block share nothing; ``hermitian`` does not change the
+    footprint."""
+    del hermitian
+    per = member_smem_bytes(n, k, n_nodes)
+
+    def resident(mb):
+        blocks = min(MAX_BLOCKS_PER_SM, SM_SHARED_BYTES // (mb * per + BLOCK_RESERVED_BYTES),
+                     MAX_WARPS_PER_SM // mb)
+        return blocks * mb
+
+    fits = [mb for mb in (1, 2, 4, MAX_MEMBERS_PER_BLOCK) if mb * per <= MAX_SHARED_BYTES]
+    if not fits:
         raise ValueError(
             f"the df_magnus_sweep kernel cannot fit one member of n={n}, k={k} in shared memory."
         )
-    return best
+    mb = max(fits, key=lambda m: (resident(m), -m))
+    while mb > 1 and -(-B // mb) < SMS:
+        mb //= 2
+    return LaunchShape(mb, -(-B // mb), resident(mb), mb * per)
 
 
-def _launch_kernel(inputs: DfInputs, chunk_b: int):
+def _launch_kernel(inputs: DfInputs, chunk_b: int, rotated: Optional[bool] = None):
+    """Form the tables once, then launch the sweep over chunks of ``chunk_b``
+    members. ``rotated`` forces a table layout (the timing script compares
+    the two); by default it follows :func:`rotated_tables`."""
     n, k, T, B = inputs.n, inputs.k, inputs.steps, inputs.batch
     if n > MAX_N:
         raise ValueError(
@@ -351,27 +404,59 @@ def _launch_kernel(inputs: DfInputs, chunk_b: int):
     device = inputs.y0.device
     n_nodes = inputs.taus.shape[1]
     lib = _kernel_lib()
-    mb = members_per_block(lib, n, k, n_nodes, inputs.hermitian)
+    np_ = padded(n)
+    if rotated is None:
+        rotated = rotated_tables(n, k, n_nodes, T)
+    opsp = torch.empty((k + 1, np_, np_), dtype=torch.complex128, device=device)
+    tab = torch.empty((T, n_nodes, k + 1 if rotated else 1, np_, np_), dtype=torch.complex128,
+                      device=device)
     out = torch.empty((n, B), dtype=torch.complex128, device=device)
     evals = torch.zeros((inputs.n_eval, n, B), dtype=torch.complex128, device=device)
-    tensors = [inputs.static, inputs.ops, inputs.omega, inputs.taus, inputs.step, inputs.coef,
-               inputs.slots, inputs.y0, out, evals]
-    pointers = [None if t is None or t.numel() == 0 else t.data_ptr() for t in tensors]
+
+    def ptr(t):
+        return None if t is None or t.numel() == 0 else t.data_ptr()
+
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
+        code = lib.df_magnus_sweep_tables(
+            ptr(inputs.static), ptr(inputs.ops), ptr(inputs.omega), ptr(inputs.taus), ptr(opsp),
+            ptr(tab), n, k, T, n_nodes, int(rotated), stream,
+        )
+        _check(lib, code, "table")
         for b0 in range(0, B, chunk_b):
             nb = min(chunk_b, B - b0)
+            shape = launch_shape(n, k, n_nodes, inputs.hermitian, nb)
             code = lib.df_magnus_sweep_launch(
-                *pointers, n, k, T, n_nodes, inputs.order, int(inputs.hermitian), mb, b0, nb, B,
-                stream,
+                ptr(opsp), ptr(tab), ptr(inputs.step), ptr(inputs.coef), ptr(inputs.slots),
+                ptr(inputs.y0), ptr(out), ptr(evals), n, k, T, n_nodes, inputs.order,
+                int(inputs.hermitian), int(rotated), shape.members_per_block, b0, nb, B, stream,
             )
-            if code != 0:
-                raise RuntimeError(
-                    "df_magnus_sweep kernel launch failed: "
-                    f"{lib.df_magnus_sweep_error_string(code).decode()}"
-                )
+            _check(lib, code, "sweep")
             sweep_expm_magnus_df.launches += 1
     return out, (evals if inputs.n_eval else None)
+
+
+def _check(lib, code: int, which: str):
+    if code != 0:
+        raise RuntimeError(
+            f"df_magnus_sweep {which} kernel launch failed: "
+            f"{lib.df_magnus_sweep_error_string(code).decode()}"
+        )
+
+
+def _dmma_product(x: torch.Tensor, y: torch.Tensor, mode: int = 0) -> torch.Tensor:
+    """``x @ y`` (mode 0), ``x @ y - y @ x`` (1) or ``c - c^H`` with ``c = x @
+    y`` (2) for (n, n) complex128 CUDA tensors, through the kernel's FP64
+    tensor-core product and transposed reads in one warp: the card tests'
+    check of its fragment layout."""
+    lib = _kernel_lib()
+    x, y = x.contiguous(), y.contiguous()
+    z = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        _check(lib, lib.df_magnus_sweep_product(x.data_ptr(), y.data_ptr(), z.data_ptr(),
+                                                x.shape[0], mode, stream), "product")
+    return z
 
 
 # ---------------------------------------------------------------------------

@@ -9,7 +9,11 @@ file imports nothing of JAX.
 
 Bars: B8 and B6 fuse multiply-adds and sum in their own order, so they agree
 with their plain versions (eager complex128 PyTorch) to float64 roundoff:
-within 1e-12 on unit-norm states and inputs. The chain kernel is built
+within 1e-12 on unit-norm states and inputs. B8's products run on the FP64
+tensor cores (DMMA, IEEE FP64 fused multiply-adds): one such product, a
+commutator and C - C^H through the kernel's fragments and transposed reads
+are held against ``torch.matmul`` in complex128 within 1e-12 on unit-scale
+entries. The chain kernel is built
 without multiply-add contraction and repeats its plain version's rounded
 operations in order: bit for bit, in complex128 as in complex64.
 """
@@ -24,7 +28,8 @@ from qiskit_dynamics_tpu_torch.ops import df_sweep as dfs
 pytestmark = pytest.mark.cuda
 
 TOL = 1e-12
-DF_DIMS = (2, 4, 9, 16, 27, 32)
+# chip_smoke.DF_DIMS and three more off the kernel's multiples of 8
+DF_DIMS = (2, 4, 5, 9, 13, 16, 27, 31, 32)
 PT_DIMS = (2, 4, 10, 16, 32)
 MEMBERS = 37  # not a multiple of any block's member count
 STEPS = 12
@@ -37,10 +42,10 @@ def cuda():
     return torch.device("cuda")
 
 
-def df_problem(n, magnus_order, uniform, device, seed=0):
+def df_problem(n, magnus_order, uniform, device, seed=0, members=MEMBERS, steps=STEPS, t0=3.0):
     """Seeded anti-Hermitian frame-basis operators (k = 2), an antisymmetric
-    frame matrix, coefficients at the Gauss nodes, unit-norm states, and a
-    uniform or non-uniform grid of STEPS steps."""
+    frame matrix (|omega| < 30), coefficients at the Gauss nodes, unit-norm
+    states, and a uniform or non-uniform grid of ``steps`` steps from t0."""
     gen = np.random.default_rng(1000 * n + 10 * magnus_order + seed)
 
     def anti_hermitian(scale):
@@ -48,13 +53,55 @@ def df_problem(n, magnus_order, uniform, device, seed=0):
         return -1j * scale * (a + a.conj().T) / (2 * np.sqrt(n))
 
     w = gen.uniform(0.0, 30.0, n)
-    y0 = gen.normal(size=(n, MEMBERS)) + 1j * gen.normal(size=(n, MEMBERS))
+    y0 = gen.normal(size=(n, members)) + 1j * gen.normal(size=(n, members))
     nodes = len(dfs.MAGNUS_NODES[magnus_order])
-    dt = 0.05 if uniform else 0.05 * (1.0 + 0.5 * np.sin(np.arange(STEPS)))
+    dt = 0.05 if uniform else 0.05 * (1.0 + 0.5 * np.sin(np.arange(steps)))
     args = (anti_hermitian(2.0), np.stack([anti_hermitian(1.0) for _ in range(2)]),
-            w[None, :] - w[:, None], gen.normal(size=(STEPS, nodes, 2, MEMBERS)),
+            w[None, :] - w[:, None], gen.normal(size=(steps, nodes, 2, members)),
             torch.as_tensor(y0 / np.linalg.norm(y0, axis=0), device=device))
-    return args, dict(dt=dt, t0=3.0, magnus_order=magnus_order)
+    return args, dict(dt=dt, t0=t0, magnus_order=magnus_order)
+
+
+def assert_matches_plain(args, kwargs, **launch):
+    """B8 through the wrapper (keywords ``launch`` passed on) against the plain
+    version on the same inputs, within TOL; returns the kernel's result."""
+    out = dfs.sweep_expm_magnus_df(*args, **kwargs, **launch)
+    torch.cuda.synchronize()
+    plain, _ = dfs.sweep_expm_magnus_df_plain(dfs.prepare_df_inputs(*args, **kwargs))
+    assert out.dtype == torch.complex128 and out.shape == plain.shape
+    assert float((out - plain).abs().max()) <= TOL
+    return out
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2])
+@pytest.mark.parametrize("n", [8, 9, 16, 27])
+def test_dmma_product_matches_matmul(cuda, n, mode):
+    """The kernel's FP64 tensor-core product (mma.sync m8n8k4 fragments, the
+    swizzled planes, zero padding to a multiple of 8): X Y, X Y - Y X, and
+    C - C^H by the transposed reads, against torch.matmul in complex128."""
+    gen = np.random.default_rng(10 * n + mode)
+    x, y = (torch.as_tensor(gen.normal(size=(n, n)) + 1j * gen.normal(size=(n, n)), device=cuda)
+            / np.sqrt(n) for _ in range(2))
+    c = x @ y
+    want = (c, c - y @ x, c - c.mH)[mode]
+    got = dfs._dmma_product(x, y, mode)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= TOL
+
+
+def test_launch_shape_matches_library(cuda):
+    """The wrapper's shared-memory reckoning is the library's, and at the df32
+    row's shape the card holds more than 8 members per SM."""
+    lib = dfs._kernel_lib()
+    for n in (2, 8, 9, 16, 17, 24, 27, 32):
+        for k in (0, 1, 2, 5):
+            for nn in (2, 3):
+                for mb in (1, 2, 4, 8):
+                    assert lib.df_magnus_sweep_smem_bytes(n, k, nn, 1, mb) == (
+                        mb * dfs.member_smem_bytes(n, k, nn))
+    shape = dfs.launch_shape(16, 2, 3, True, 2048)
+    blocks = lib.df_magnus_sweep_active_blocks(16, 2, 3, 1, shape.members_per_block)
+    assert blocks * shape.members_per_block >= 8
 
 
 @pytest.mark.parametrize("uniform, slots", [(True, False), (False, True)])
@@ -79,6 +126,46 @@ def test_df_sweep_kernel_matches_plain(cuda, n, magnus_order, hermitian, uniform
         assert out[1].shape == (3, n, MEMBERS)
         assert float((out[1] - plain_traj).abs().max()) <= TOL
         assert torch.equal(out[1][-1], out[0])  # the last slot is the last step
+
+
+@pytest.mark.parametrize("members", [1, 17, 2049])
+def test_df_sweep_member_counts(cuda, members):
+    """One member; a launch of 17 (one member per block, 17 blocks); one past a
+    full chunk of 2,048 (two launches, the second of one member)."""
+    args, kwargs = df_problem(16, 3, True, cuda, members=members, steps=6)
+    kwargs["hermitian"] = True
+    before = dfs.sweep_expm_magnus_df.launches
+    assert_matches_plain(args, kwargs)
+    assert dfs.sweep_expm_magnus_df.launches == before + -(-members // 2048)
+
+
+@pytest.mark.parametrize("hermitian", [False, True])
+def test_df_sweep_large_phase_arguments(cuda, hermitian):
+    """Node times near 330 and |omega| up to 30: phase arguments reach ~1e4
+    rad, so the table's fmod reduction carries the phases."""
+    args, kwargs = df_problem(13, 3, False, cuda, steps=8, t0=330.0)
+    kwargs["hermitian"] = hermitian
+    assert float(np.abs(args[2]).max()) * 330.0 > 5e3
+    assert_matches_plain(args, kwargs, chunk_b=16)
+
+
+@pytest.mark.parametrize("rotated", [None, False, True])
+def test_df_sweep_table_layouts(cuda, rotated):
+    """Both table layouts: at n = 32 and 300 Magnus-3 steps the rotated
+    tables would take 44 MB, so the call takes the (cos, sin) table; forced
+    either way at a small shape."""
+    if rotated is None:
+        args, kwargs = df_problem(32, 3, True, cuda, members=5, steps=300)
+        inputs = dfs.prepare_df_inputs(*args, **kwargs)
+        assert not dfs.rotated_tables(inputs.n, inputs.k, 3, inputs.steps)
+        out, _ = dfs._launch_kernel(inputs, 2048)
+    else:
+        args, kwargs = df_problem(9, 3, False, cuda, members=5)
+        inputs = dfs.prepare_df_inputs(*args, **kwargs)
+        out, _ = dfs._launch_kernel(inputs, 2, rotated=rotated)
+    torch.cuda.synchronize()
+    plain, _ = dfs.sweep_expm_magnus_df_plain(inputs)
+    assert float((out - plain).abs().max()) <= TOL
 
 
 def test_df_sweep_kernel_rejects(cuda):

@@ -140,14 +140,46 @@ def test_validation(problem, change, error, message):
 
 def test_kernel_source_matches_wrapper():
     """The kernel's step constants come from the wrapper's float64 table; its
-    limits are the wrapper's."""
+    limits are the wrapper's, and its products run on the FP64 tensor cores."""
     from qiskit_dynamics_tpu_torch.kernels import _build
 
     source = (_build.SOURCE_DIR / "df_magnus_sweep.cu").read_text()
     assert f"kMaxN = {dfs.MAX_N};" in source
-    assert f"kMaxThreads = {dfs.MAX_THREADS};" in source
-    assert f"kSplit = {dfs.SPLIT};" in source
-    assert f"kMaxMb = {dfs.MAX_MEMBERS_PER_BLOCK};" in source
+    assert f"kMaxMembers = {dfs.MAX_MEMBERS_PER_BLOCK};" in source
+    assert "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64" in source
+    assert "__syncthreads" not in source  # one warp per member: no barrier of the block
     assert "df_sweep_pallas.py:78" in source
     np.testing.assert_array_equal(dfs.MAGNUS_NODES[3], JAX_NODES[3])
     np.testing.assert_array_equal(dfs.MAGNUS_NODES[2], JAX_NODES[2])
+
+
+@pytest.mark.parametrize(
+    "members, per_block, blocks",
+    [(2048, 1, 2048),  # a launch of the df32 row: one member per block, one wave
+     (17, 1, 17),  # the Chebyshev row's launch: one SM per member
+     (1, 1, 1)],
+)
+def test_launch_shape(members, per_block, blocks):
+    """Kernel B8's launch shape, by the wrapper's shared-memory reckoning: at
+    the df32 row (n = 16, k = 2, Magnus-3) a member takes 12,848 bytes, so more
+    than 8 members (16) are resident per SM and a chunk of 2,048 fits the 132
+    SMs at once; a small launch spreads over as many blocks as it has members."""
+    shape = dfs.launch_shape(16, 2, 3, True, members)
+    assert dfs.member_smem_bytes(16, 2, 3) == 12848
+    assert shape.members_per_sm > 8
+    assert dfs.SMS * shape.members_per_sm >= 2048
+    assert (shape.members_per_block, shape.blocks) == (per_block, blocks)
+    assert shape.smem_bytes == per_block * 12848
+
+
+def test_launch_shape_and_layout_by_size():
+    """Padding to the FP64 tensor cores' multiple of 8; more members per block
+    at small n and large launches, fewer once that would leave SMs idle;
+    Magnus-3 above n = 16 holds two more planes; the table layout by size."""
+    assert [dfs.padded(n) for n in (1, 8, 9, 16, 17, 27, 32)] == [8, 8, 16, 16, 24, 32, 32]
+    big, small = dfs.launch_shape(4, 2, 3, False, 5000), dfs.launch_shape(4, 2, 3, False, 200)
+    assert big.members_per_block > 1 and big.blocks >= dfs.SMS
+    assert small.members_per_block == 1 and small.blocks == 200
+    assert dfs.member_smem_bytes(27, 0, 3) - dfs.member_smem_bytes(27, 0, 2) == 2 * 16 * 32**2
+    assert dfs.rotated_tables(16, 2, 3, 500)  # the df32 row: 18.4 MB of rotated tables
+    assert not dfs.rotated_tables(32, 2, 3, 300)  # 44 MB: the (cos, sin) table
