@@ -11,27 +11,35 @@ raises and exits non-zero:
 1. device: a CUDA device is required; prints the card's name and power limit
    as ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
    reports them.
-2. build: compiles the eight kernel sources, the lockstep-adaptive dopri5
+2. build: compiles the nine kernel sources, the lockstep-adaptive dopri5
    sweep (``qiskit_dynamics_tpu_torch/csrc/adaptive_sweep.cu``), the fixed-step
    Magnus-2 sweep (``csrc/sweep_magnus2.cu``), the member-major Magnus-2/3
    sweep (``csrc/member_sweep.cu``), the Horner expm action
    (``csrc/horner_apply.cu``), the streamed propagator chain
    (``csrc/chain_apply.cu``), the batched product, Taylor expm and expm
    backward (``csrc/batched_linalg.cu``), the FP64 Magnus sweep
-   (``csrc/df_magnus_sweep.cu``) and the fused expm chain
+   (``csrc/df_magnus_sweep.cu``, and ``csrc/df_magnus_wide.cu`` above n =
+   32) and the fused expm chain
    (``csrc/expm_chain.cu``), one nvcc each, in parallel.
 3. kernel against its eager twin on the card, in every mode (constant
    envelopes with padded lanes, envelope tables, eval times, budget
-   exhaustion, stall guard) at n = 4, 9, 16, 27: final states within 1e-5,
-   equal accepted-step counts per tile, step sizes within 1e-5 relative,
-   NaN in the same tiles.
+   exhaustion, stall guard) at n = 4, 9, 16, 27, 33, 64 (tile_b = 256): final
+   states within 1e-5, equal accepted-step counts per tile, step sizes
+   within 1e-5 relative, NaN in the same tiles; then the main row's
+   tile_b = 512 at n = 16 with each tile forced over clusters of 1, 2, 4, 8
+   and 16 blocks (fewer than 8 run several members per lane group), constant
+   and table modes: states and step records equal to the twin's bit for bit.
 4. the main path at full width: ``cr_solver()`` (n = 16) through
    ``Solver.solve_sweep(method="fused_dopri5")`` over 10,000 amplitudes,
    T = 100, atol = rtol = 1e-6, h0 = 0.1; three probe members against the
    port's float64 DOP853 (atol = rtol = 1e-8) within 1e-5 in population;
    the kernel launch counter must rise; sims/s from a steady block of at
    least 1 s and 3 repeats; the kernel's and the twin's time at that shape,
-   and the accepted-step record from which the kernel's bound is computed.
+   and the accepted-step record from which the kernel's bound is computed;
+   the kernel's launch shape (cluster G, lanes P and rows R per member,
+   threads), the clusters the card co-schedules, its ptxas registers and
+   spills, and its time per step (over the slowest tile's steps, rejected
+   ones included).
 5. the fixed-step kernel against its plain version on the card, in every
    mode (matrix, matrix_herm, matvec) at n = 4, 9, 16, 25, with padded lanes
    and a ragged last block, plus a trajectory (eval_slots) case: states
@@ -92,6 +100,11 @@ raises and exits non-zero:
    in the others), 37 and 1,000 lanes, chains of 1 and 7 steps, expm orders 8
    and 12 with 0, 1 and 2 squarings. The chain kernel is built without
    multiply-add contraction and must agree bit for bit; the others within 1e-5.
+   Past n = 64, at n = 65 and 100 (a lane's matrices in device memory above
+   98), the four ops and the gradients of the ``_ad`` forms, and at n = 65
+   ``DysonSolver``/``MagnusSolver.solve_sweep`` of a seeded expansion, run
+   the kernels: within float32 roundoff (1e-5) of the CPU's plain versions,
+   each kernel's launch counter rising.
 12. the Dyson row of BASELINE config 4 at full width:
    ``dyson_transmon_solver(device="cuda")`` (dim 10, nu = 5, alpha = -0.33,
    r = 0.02, dt = 0.1, Chebyshev order 1, Dyson order 6) through
@@ -120,7 +133,11 @@ raises and exits non-zero:
    chunk) at n = 16; node times near 330, so that the phase arguments reach
    ~1e4 rad; n = 32 over 300 steps, where the call takes the (cos, sin)
    table: all within 1e-12; the chain in complex128 bit for bit and the
-   Taylor expm in complex128 within 1e-12, at phase 11's shapes.
+   Taylor expm in complex128 within 1e-12, at phase 11's shapes. Past n =
+   32 B8 takes its one-block-per-member sweep: at n = 33 and 46 (planes in
+   device memory above 45), and ``fused_sweep_solve(precision="df32")`` of a
+   vectorized dim-6 Lindblad model (solve_dim 36), within 1e-12 of the CPU's
+   plain version, B8's counter rising.
 15. the df32 CR rows at full width: ``cr_solver()`` (n = 16, frame diag(H0),
    RWA) through ``Solver.solve_sweep(method="fused_magnus2",
    precision="df32")`` over 10,000 amplitudes, T = 100, max_dt = 0.2 (500
@@ -184,7 +201,8 @@ AMP_SCALE = 0.02
 PROBES = 3
 MAIN_TOL = 1e-6
 MODE_TOL = 1e-3
-DIMS = (4, 9, 16, 27)
+DIMS = (4, 9, 16, 27, 33, 64)
+B1_CLUSTERS = (1, 2, 4, 8, 16)  # phase 3's forced cluster sizes at the main row's tile_b
 B2_DIMS = (4, 9, 16, 25)
 B2_MODES = ("matrix", "matrix_herm", "matvec")
 B2_TOL = 1e-5
@@ -232,6 +250,9 @@ PT_KERNEL_TOL = 1e-5  # batched_linalg kernels vs torch.einsum: float32 roundoff
 PT_DIMS = (2, 4, 10, 16, 32, 48)
 PT_BATCHES = (37, 1000)
 PT_EXPM_CASES = ((8, 0), (8, 2), (12, 0), (12, 1), (12, 2))
+# past n = 64 the perturbative kernels against the CPU's plain versions:
+# float32 on two devices, each summing in its own order
+PAST_64_TOL = 1e-5
 DF_DIMS = (2, 4, 5, 9, 13, 16, 27, 31, 32)  # B8 pads n to a multiple of 8
 DF_MEMBERS, DF_STEPS = 37, 12  # phase 14's kernel checks: 37 members in launches of 16
 # phase 14's member counts at n = 16, default chunks of 2,048: one member; 17
@@ -385,6 +406,55 @@ def phase_modes(torch, asw, expand_lanes):
             log(f"  n={n:2d} {mode:8s} state diff {diff:.2e}  steps rel {steps:.2e}  "
                 f"accepted/tile {counts}  nan tiles {int(nan_tiles.sum())}")
     return worst_state, worst_step
+
+
+def phase_clusters(torch, asw):
+    """B1 at the main row's n = 16 and tile_b = 512 (1,024 members, two tiles)
+    forced over clusters of B1_CLUSTERS blocks, constant and table modes:
+    states and step records equal to the twin's bit for bit. Returns the
+    shapes."""
+    cuda = torch.device("cuda")
+    n, tile_b, members, T, n_cells = 16, 512, 1024, 2.0, 8
+    static, ops, omega, freqs = kernel_problem(n, seed=100 + n)
+    gen = np.random.default_rng(n)
+    amp = gen.uniform(0.5, 2.0, members) * np.exp(1j * gen.uniform(0, 2 * np.pi, members))
+    amps = torch.as_tensor(np.stack([amp, amp * np.exp(-1j * np.pi / 2)]), device=cuda)
+    y0 = torch.zeros((n, members), dtype=torch.complex128, device=cuda)
+    y0[0] = 1.0
+    cell_t = (np.arange(n_cells) + 0.5) * T / n_cells
+    table = amps[:, None, :] * torch.as_tensor(np.exp(-((cell_t - 1.0) ** 2)),
+                                               device=cuda)[None, :, None]
+    modes = {"constant": (amps, {}), "table": (table, {"env_dt": T / n_cells})}
+    shapes = []
+    for cluster in B1_CLUSTERS:
+        shape = asw.shape_for(n, 2, tile_b, cluster)
+        shapes.append(shape)
+        for mode, (mode_amps, extra) in modes.items():
+            inputs = asw.prepare_inputs(static, ops, omega, freqs, mode_amps, y0, tf=T,
+                                        atol=MODE_TOL, rtol=MODE_TOL, h0=0.1, tile_b=tile_b,
+                                        max_steps=2048, **extra)
+            out, _, rec = asw._launch_kernel(inputs, True, shape=shape)
+            twin, _, twin_rec = asw.sweep_dopri5_lockstep_plain(inputs, record_steps=True)
+            torch.cuda.synchronize()
+            check(torch.equal(out, twin) and torch.equal(rec, twin_rec),
+                  f"B1 at {shape} {mode}: kernel vs twin {float((out - twin).abs().max()):.2e}, "
+                  f"step records equal {bool(torch.equal(rec, twin_rec))}")
+            log(f"  n=16 tile_b=512 G={cluster} P={shape.lanes} R={shape.rows} "
+                f"V={shape.members_per_group} {mode}: bitwise, accepted/tile "
+                f"{(rec > 0).sum(dim=1).tolist()}")
+    return shapes
+
+
+def ptxas_entry(report: str, tag: str) -> str:
+    """Registers and spills of the kernel entries whose mangled name holds
+    ``tag``, from a ``-Xptxas -v`` report."""
+    found, take = [], False
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            take = tag in line
+        elif take and ("spill" in line or "registers" in line):
+            found.append(line.split(":")[-1].strip() if "registers" in line else line.strip())
+    return "; ".join(found)
 
 
 # --------------------------------------------------------------------------
@@ -1121,6 +1191,161 @@ def phase_perturbative_kernels(torch, ca, bl):
             log(f"  B5/B10/B6/B7 n={n:2d} B={B:4d}: chain bitwise, matmul {worst['matmul']:.2e}, "
                 f"expm {worst['expm']:.2e}, expm_bwd {worst['expm_bwd']:.2e} (running max)")
     return worst
+
+
+def synthetic_expansion_solver(torch, interop, method, n, device, seed=5):
+    """A Dyson or Magnus solver of dimension ``n`` around seeded arrays in
+    place of a precomputed expansion (one drive, Chebyshev order 1 with the
+    imaginary part: four coefficients, six monomials), complex64."""
+    gen = np.random.default_rng(seed)
+
+    def anti_hermitian(scale):
+        a = gen.normal(size=(n, n)) + 1j * gen.normal(size=(n, n))
+        return -1j * scale * (a + a.conj().T) / (2 * np.sqrt(n))
+
+    udt, _ = np.linalg.qr(gen.normal(size=(n, n)) + 1j * gen.normal(size=(n, n)))
+    labels = [[0], [1], [2], [3], [0, 0], [0, 2]]
+    return interop.perturbative_solver_from_arrays(
+        operators=anti_hermitian(1.0)[None], frame_operator=None, dt=0.1,
+        carrier_freqs=np.array([5.0]), chebyshev_orders=[1], include_imag=[True], Udt=udt,
+        expansion_method=method, poly_constant=np.eye(n) if method == "dyson" else None,
+        poly_coefficients=np.stack([anti_hermitian(0.05) for _ in labels]),
+        poly_labels=labels, device=device, dtype=torch.complex64,
+    )
+
+
+def perturbative_past_64(torch, ca, bl, Signal, interop):
+    """Past n = 64 on the card: at n = 65 and 100 (a lane's matrices in device
+    memory above 98) the chain, product and Taylor expm, the gradients of the
+    ``_ad`` forms, and the Dyson and Magnus ``solve_sweep`` of a seeded
+    expansion at n = 65 run the kernels, within PAST_64_TOL of the CPU's plain
+    versions. Returns the max difference."""
+    cuda = torch.device("cuda")
+
+    def launches():
+        return (ca.chain_apply_bol.launches, bl.matmul_bol.launches,
+                bl.expm_taylor_bol.launches, bl.expm_taylor_bol_bwd.launches)
+
+    diffs = {}
+    for n in (65, 100):
+        before = launches()
+        gen = np.random.default_rng(n)
+        props = unitary_stack(gen, 3, n, 5)
+        y0 = (gen.normal(size=(n, 5)) + 1j * gen.normal(size=(n, 5))).astype(np.complex64)
+        got = ca.chain_apply_bol(torch.as_tensor(props, device=cuda),
+                                 torch.as_tensor(y0, device=cuda))
+        diffs[f"chain {n}"] = float((got.cpu() - ca.chain_apply_bol_plain(
+            torch.as_tensor(props), torch.as_tensor(y0))).abs().max())
+        planes = unit_planes(torch, gen, n, 6, count=4, device="cpu")
+        on_card = [p.to(cuda) for p in planes]
+        diffs[f"matmul {n}"] = planes_diff([g.cpu() for g in bl.matmul_bol(*on_card)],
+                                           bl.matmul_bol_plain(*planes))
+        diffs[f"expm {n}"] = planes_diff(
+            [g.cpu() for g in bl.expm_taylor_bol(*on_card[:2], 8, 1)],
+            bl.expm_taylor_bol_plain(*planes[:2], 8, 1))
+        grads = []
+        for device in (cuda, "cpu"):
+            xs = [p.to(device).requires_grad_(True) for p in planes[:2]]
+            pr, pi = bl.expm_taylor_bol_ad(*xs, 8, 1)
+            (pr * planes[2].to(device) + pi * planes[3].to(device)).sum().backward()
+            u = torch.as_tensor(props, device=device).requires_grad_(True)
+            (ca.chain_apply_bol_ad(u, torch.as_tensor(y0, device=device)).abs() ** 2
+             ).sum().backward()
+            grads.append([xs[0].grad, xs[1].grad, u.grad])
+        diffs[f"gradients {n}"] = max(float((g.cpu() - w).abs().max()) for g, w in zip(*grads))
+        torch.cuda.synchronize()
+        rose = tuple(a - b for a, b in zip(launches(), before))
+        check(rose == (2, 1, 2, 1), f"n={n}: kernel launches {rose}, not (2, 1, 2, 1)")
+
+    def signals(amp):
+        return [Signal(lambda t: amp * torch.ones_like(t), carrier_freq=5.0)]
+
+    n = 65
+    y0 = np.zeros(n, dtype=complex)
+    y0[0] = 1.0
+    amps = torch.linspace(0.2, 1.0, 7, dtype=torch.float64)
+    for method in ("dyson", "magnus"):
+        before = launches()
+        got = synthetic_expansion_solver(torch, interop, method, n, cuda).solve_sweep(
+            0.0, 4, y0, signals, amps.to(cuda))
+        torch.cuda.synchronize()
+        rose = tuple(a - b for a, b in zip(launches(), before))
+        check(rose == (1, 0, int(method == "magnus"), 0), f"{method} at n={n}: launches {rose}")
+        want = synthetic_expansion_solver(torch, interop, method, n, "cpu").solve_sweep(
+            0.0, 4, y0, signals, amps)
+        check(got.device.type == "cuda", f"{method} solve_sweep at n={n} left the card")
+        diffs[method] = float((got.cpu() - want).abs().max())
+    worst = max(diffs.values())
+    check(worst <= PAST_64_TOL, f"past n = 64, the card vs the CPU: {diffs} > {PAST_64_TOL}")
+    log("  past n = 64: " + ", ".join(f"{k} {v:.2e}" for k, v in diffs.items()))
+
+    # times at n = 100 over 256 lanes (matrices in device memory): each kernel
+    # and its plain version on the card, ms
+    n, lanes = 100, 256
+    gen = np.random.default_rng(7)
+    props = torch.as_tensor(unitary_stack(gen, 8, n, lanes), device=cuda)
+    y0 = torch.as_tensor((gen.normal(size=(n, lanes)) + 0j).astype(np.complex64), device=cuda)
+    planes = unit_planes(torch, gen, n, lanes, count=4)
+    cases = {
+        "chain T=8": (lambda: ca.chain_apply_bol(props, y0),
+                      lambda: ca.chain_apply_bol_plain(props, y0)),
+        "matmul": (lambda: bl.matmul_bol(*planes), lambda: bl.matmul_bol_plain(*planes)),
+        "expm": (lambda: bl.expm_taylor_bol(*planes[:2], 12, 1),
+                 lambda: bl.expm_taylor_bol_plain(*planes[:2], 12, 1)),
+        "expm_bwd": (lambda: bl.expm_taylor_bol_bwd(*planes, 12, 1),
+                     lambda: bl.expm_taylor_bol_bwd_plain(*planes, 12, 1)),
+    }
+    times = {name: (cuda_ms(torch, kernel, reps=3), cuda_ms(torch, plain, reps=3))
+             for name, (kernel, plain) in cases.items()}
+    return worst, times
+
+
+def df_past_32(torch, dfs, Signal, lindblad_qudit_solver, fused_sweep_solve):
+    """B8 past n = 32 on the card (its one-block-per-member sweep): at n = 33
+    and 46 (planes in device memory above 45), Magnus-2 and -3, and the df32
+    sweep of a vectorized dim-6 Lindblad model (solve_dim 36), within
+    DF_KERNEL_TOL of the CPU's plain version, one launch each. Returns the
+    max difference."""
+    worst = 0.0
+    for n in (33, 46):
+        check(dfs.kernel_for(n) == "wide", f"n={n} does not take B8's wide sweep")
+        for magnus_order in (2, 3):
+            args, kwargs = df_kernel_problem(torch, n, magnus_order, False, "cuda")
+            before = dfs.sweep_expm_magnus_df.launches
+            got = dfs.sweep_expm_magnus_df(*args, **kwargs)
+            torch.cuda.synchronize()
+            check(dfs.sweep_expm_magnus_df.launches == before + 1, f"B8 at n={n}: no launch")
+            want = dfs.sweep_expm_magnus_df(*args[:-1], args[-1].cpu(), **kwargs)
+            worst = max(worst, float((got.cpu() - want).abs().max()))
+
+    def lindblad(device):
+        solver, rho0, carrier = lindblad_qudit_solver(dim=6, device=device)
+
+        def signals_fn(amp):
+            return [Signal(amp, carrier_freq=carrier)]
+
+        amps = torch.linspace(0.2, 1.0, 9, dtype=torch.float64, device=device)
+        return fused_sweep_solve(solver.model, signals_fn, amps, (0.0, 2.0), 0.1, rho0,
+                                 precision="df32")
+
+    before = dfs.sweep_expm_magnus_df.launches
+    got = lindblad("cuda")
+    torch.cuda.synchronize()
+    check(dfs.sweep_expm_magnus_df.launches == before + 1, "the dim-6 df32 sweep: no B8 launch")
+    check(got.device.type == "cuda" and got.shape == (9, 6, 6), "the dim-6 df32 sweep")
+    worst = max(worst, float((got.cpu() - lindblad("cpu")).abs().max()))
+    check(worst <= DF_KERNEL_TOL, f"B8 past n = 32, the card vs the CPU: {worst:.2e}")
+
+    # times over 256 members, 12 Magnus-3 steps with `hermitian`: the wide
+    # sweep and the plain version on the card, ms
+    times = {}
+    for n in (36, 46):
+        args, kwargs = df_kernel_problem(torch, n, 3, True, "cuda", members=256)
+        kwargs["hermitian"] = True
+        inputs = dfs.prepare_df_inputs(*args, **kwargs)
+        times[n] = (cuda_ms(torch, lambda: dfs.sweep_expm_magnus_df(*args, **kwargs), reps=3),
+                    cuda_ms(torch, lambda: dfs.sweep_expm_magnus_df_plain(inputs), reps=1))
+    return worst, times
 
 
 # --------------------------------------------------------------------------
@@ -1948,7 +2173,7 @@ def main() -> int:
     print(f"phase 1 device: {smi} (torch {torch.__version__}, CUDA {torch.version.cuda})",
           flush=True)
 
-    from qiskit_dynamics_tpu_torch import Signal, Solver, solve_ode
+    from qiskit_dynamics_tpu_torch import Signal, Solver, interop, solve_ode
     from qiskit_dynamics_tpu_torch.benchmarks import (
         cr_solver,
         expm_chain,
@@ -1966,21 +2191,25 @@ def main() -> int:
     from qiskit_dynamics_tpu_torch.ops import horner_pallas as hp
     from qiskit_dynamics_tpu_torch.ops import member_sweep as msw
     from qiskit_dynamics_tpu_torch.ops import sweep_solver as ssw
-    from qiskit_dynamics_tpu_torch.solvers.fused_sweep import _expand_lanes, sweep_arguments
+    from qiskit_dynamics_tpu_torch.solvers.fused_sweep import (
+        _expand_lanes,
+        fused_sweep_solve,
+        sweep_arguments,
+    )
 
-    # phase 2: build the eight kernel sources, one nvcc each, in parallel
+    # phase 2: build the nine kernel sources, one nvcc each, in parallel
     start = time.perf_counter()
     names = ("adaptive_sweep", "sweep_magnus2", "member_sweep", "horner_apply", "chain_apply",
-             "batched_linalg", "df_magnus_sweep", "expm_chain")
+             "batched_linalg", "df_magnus_sweep", "df_magnus_wide", "expm_chain")
     with ThreadPoolExecutor(len(names)) as pool:
-        for lib in pool.map(_build.load, names):
-            check(lib is not None, "a kernel library did not load")
+        libs = list(pool.map(_build.load, names))
+    check(all(lib is not None for lib in libs), "a kernel library did not load")
     build_s = time.perf_counter() - start
     reports = []
-    for name in names:
-        report = sorted(_build.BUILD_DIR.glob(f"lib{name}_*.so.ptxas.txt"))
+    for name, lib in zip(names, libs):
+        report = Path(lib._name + ".ptxas.txt")  # the library this run loaded
         reports.append(f"{name}: " + " ".join(
-            line.strip() for line in (report[-1].read_text().splitlines() if report else [])
+            line.strip() for line in (report.read_text().splitlines() if report.exists() else [])
             if "registers" in line or "spill" in line
         )[:400])
     print(f"phase 2 build: {', '.join(names)} built in {build_s:.2f} s; " + "; ".join(reports),
@@ -1989,8 +2218,12 @@ def main() -> int:
     # phase 3: kernel against twin, every mode, every n
     start = time.perf_counter()
     state_diff, step_rel = phase_modes(torch, asw, _expand_lanes)
+    forced = phase_clusters(torch, asw)
     print(f"phase 3 kernel vs twin: 5 modes x n in {DIMS} agree (max state diff "
-          f"{state_diff:.2e} <= 1e-5, max step rel {step_rel:.2e} <= 1e-5) in "
+          f"{state_diff:.2e} <= 1e-5, max step rel {step_rel:.2e} <= 1e-5); n = 16, tile_b = "
+          f"512 over clusters of {B1_CLUSTERS} blocks ((G, P, R, threads, members per group) "
+          f"{[(s.cluster, s.lanes, s.rows, s.threads, s.members_per_group) for s in forced]}), "
+          f"constant and table modes, bit for bit with equal step records, in "
           f"{time.perf_counter() - start:.1f} s", flush=True)
 
     # phase 4: the main path at full width
@@ -2054,10 +2287,21 @@ def main() -> int:
     check(main_diff <= 1e-5, f"main-path kernel vs twin diff {main_diff:.2e} > 1e-5")
     host_ms = per_call * 1e3 - kernel_ms
     # the bound counts this run's accepted steps (the kernel's step record)
-    record = asw._launch_kernel(inputs, True)[2].cpu().numpy()
+    b1_steps = torch.zeros(inputs.batch // inputs.tile_b, dtype=torch.int32, device=cuda)
+    record = asw._launch_kernel(inputs, True, steps_out=b1_steps)[2].cpu().numpy()
     accepted = (record > 0).sum(axis=1)
     b1_bytes = 4 * (2 * inputs.k * inputs.batch + 4 * dim * inputs.batch)
     b1_bound_ms, b1_bound_by = bound(b1_work(dim, inputs.k, inputs.tile_b, accepted), b1_bytes)
+    b1_shape = asw.launch_shape(dim, inputs.k, inputs.tile_b)
+    b1_clusters = asw.active_clusters(dim, inputs.k, inputs.tile_b)
+    b1_steps_max = int(b1_steps.max())
+    b1_us_per_step = kernel_ms * 1e3 / b1_steps_max
+    report = Path(asw._kernel_lib()._name + ".ptxas.txt")  # the library the launch loaded
+    # the instantiation the launch took: rows, two operators or any, n = 16 compile-time
+    two = inputs.k == 2
+    compiled_n = 16 if two and dim == 16 and b1_shape.lanes * b1_shape.rows == 16 else 0
+    b1_ptxas = ptxas_entry(report.read_text() if report.exists() else "",
+                           f"ILi{b1_shape.rows}ELi{2 if two else 0}ELi{compiled_n}EE")
     print(
         f"phase 4 main path: cr_solver n={dim}, {SWEEP} members, T={T_MAIN}, tol {MAIN_TOL}: "
         f"{sims_per_s:.1f} sims/s ({reps} calls in a {block_s:.2f} s block, "
@@ -2066,7 +2310,11 @@ def main() -> int:
         f"cr_sweep_max_err {max_err:.2e} (<= 1e-5, {PROBES} probes vs DOP853 1e-8 at "
         f"{dop853_s:.2f} s/sim); max |norm - 1| {norm_dev:.2e}; launches {launches}; "
         f"accepted steps per tile mean {accepted.mean():.1f} max {accepted.max()}, bound "
-        f"{b1_bound_ms:.3f} ms ({b1_bound_by})",
+        f"{b1_bound_ms:.3f} ms ({b1_bound_by}); shape G={b1_shape.cluster} P={b1_shape.lanes} "
+        f"R={b1_shape.rows} threads={b1_shape.threads} (members per group "
+        f"{b1_shape.members_per_group}, {b1_shape.stages_per_pass} stages per table pass, "
+        f"{b1_shape.smem_bytes} B shared), {b1_clusters} clusters co-resident, ptxas: {b1_ptxas}; "
+        f"steps per tile (rejected included) max {b1_steps_max}, {b1_us_per_step:.2f} us per step",
         flush=True,
     )
 
@@ -2110,12 +2358,17 @@ def main() -> int:
     # phase 11: the perturbative kernels against their plain versions
     start = time.perf_counter()
     pt_diffs = phase_perturbative_kernels(torch, ca, bl)
+    pt_past, pt_past_ms = perturbative_past_64(torch, ca, bl, Signal, interop)
     print(f"phase 11 chain_apply, matmul_bol, expm_taylor_bol and expm_taylor_bol_bwd vs plain: "
           f"n in {PT_DIMS} x lanes in {PT_BATCHES}, chains of 1 and 7 steps (bitwise equal), "
           f"matmul (max diff {pt_diffs['matmul']:.2e}), expm and its backward at (order, "
           f"squarings) in {PT_EXPM_CASES} (max diff {pt_diffs['expm']:.2e}, "
-          f"{pt_diffs['expm_bwd']:.2e}); all <= {PT_KERNEL_TOL} in "
-          f"{time.perf_counter() - start:.1f} s", flush=True)
+          f"{pt_diffs['expm_bwd']:.2e}); all <= {PT_KERNEL_TOL}; past n = 64 (n = 65 and 100: the "
+          f"four kernels, the _ad gradients; Dyson and Magnus solve_sweep at 65) the kernels vs "
+          f"the CPU's plain versions {pt_past:.2e} <= {PAST_64_TOL}; at n = 100 x 256 lanes, "
+          f"kernel / plain on the card: " + ", ".join(
+              f"{k} {a:.3f} / {b:.3f} ms" for k, (a, b) in pt_past_ms.items())
+          + f"; in {time.perf_counter() - start:.1f} s", flush=True)
 
     # phases 12 and 13: the Dyson and Magnus rows, one set of host references
     pt_amps = np.linspace(0.2, 1.0, PT_SWEEP)[perturbative_probes()]
@@ -2128,14 +2381,19 @@ def main() -> int:
     # phase 14: the FP64 kernels against their plain versions
     start = time.perf_counter()
     df_diffs = phase_df_kernels(torch, dfs, ca, bl)
+    df_past, df_past_ms = df_past_32(torch, dfs, Signal, lindblad_qudit_solver, fused_sweep_solve)
     print(f"phase 14 df_magnus_sweep, and chain_apply and expm_taylor_bol in complex128, vs plain: "
           f"B8 n in {DF_DIMS} x Magnus-2/3 x hermitian on/off x (uniform dt; non-uniform dt with "
           f"eval_slots), {DF_MEMBERS} members in launches of 16, {DF_MEMBER_COUNTS} members at "
           f"n = 16, phases near 1e4 rad, the (cos, sin) table at n = 32 (max diff "
           f"{df_diffs['df']:.2e}); "
           f"chain n in {PT_DIMS} x lanes in {PT_BATCHES} x 1 and 7 steps, bitwise equal; expm "
-          f"at (order, squarings) in {PT_EXPM_CASES} (max diff {df_diffs['expm']:.2e}); all <= "
-          f"{DF_KERNEL_TOL} in {time.perf_counter() - start:.1f} s", flush=True)
+          f"at (order, squarings) in {PT_EXPM_CASES} (max diff {df_diffs['expm']:.2e}); B8's "
+          f"wide sweep (n = 33 and 46, and df32 Lindblad solve_dim 36) vs the CPU's plain "
+          f"version {df_past:.2e}, over 256 members x 12 Magnus-3 steps kernel / plain on the "
+          f"card " + ", ".join(f"n = {n} {a:.3f} / {b:.3f} ms" for n, (a, b) in df_past_ms.items())
+          + f"; all <= {DF_KERNEL_TOL} in "
+          f"{time.perf_counter() - start:.1f} s", flush=True)
 
     # phases 15 and 16: the df32 CR rows and the Chebyshev rows, on phase 4's
     # model, one set of host references
@@ -2165,6 +2423,10 @@ def main() -> int:
         "bound_ms": b1_bound_ms,
         "bound_by": b1_bound_by,
         "library_ms": None,
+        "shape": dataclasses.asdict(b1_shape),
+        "clusters_resident": b1_clusters,
+        "steps_max": b1_steps_max,
+        "us_per_step": b1_us_per_step,
     }, {
         "name": "sweep_magnus2",
         "route": "cuda",

@@ -36,17 +36,23 @@
 // instead of one step ahead (two rows of 32 complex128 values would not fit
 // the 255 registers of a thread).
 //
-// From n = 33 to 64 (chain_apply_wide_kernel) a block has 32 threads per lane
-// and each thread computes two rows, i and i + 32, of its lane's new state:
-// n is a runtime value, every row is read from memory as it is used, and the
-// sum over m runs in order with the same rounded operations, so this path is
-// bitwise with the plain version too. Above 64 the wrapper raises.
+// Above n = 32 (chain_apply_wide_kernel) a block has 32 threads per lane and
+// each thread computes the rows i, i + 32, i + 64, ... of its lane's new
+// state: n is a runtime value, the double-buffered state is in dynamic shared
+// memory (8 lanes a block, fewer where 2 n lanes states would pass 227 KB),
+// every row is read from memory as it is used, and the sum over m runs in
+// order with the same rounded operations, so this path is bitwise with the
+// plain version too. Above n = 4096 the wrapper raises.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
 
 namespace {
+
+constexpr int kMaxN = 4096;
+constexpr int kWideLanes = 8;           // lanes of a block above n = 32
+constexpr size_t kSharedLimit = 232448;  // dynamic shared memory a block may use
 
 template <typename R> struct Complex;
 template <> struct Complex<float> { using type = float2; };
@@ -117,66 +123,64 @@ chain_apply_kernel(const typename Complex<R>::type* __restrict__ props,
   if (live) out[(size_t)i * B + b] = ybuf[cur][i][l];
 }
 
-// 33 <= n <= 64: 32 threads per lane, rows i and i + 32 per thread, rows read
-// from memory when used.
-template <typename R, int LANES>
-__global__ void __launch_bounds__(32 * LANES)
+// n > 32: 32 threads per lane, rows i, i + 32, ... per thread, rows read from
+// memory when used; the state ybuf[2][n][lanes] in dynamic shared memory.
+template <typename R>
+__global__ void __launch_bounds__(32 * kWideLanes)
 chain_apply_wide_kernel(const typename Complex<R>::type* __restrict__ props,
                         const typename Complex<R>::type* __restrict__ y0,
                         typename Complex<R>::type* __restrict__ out, int T, int n, int B,
                         long long st, long long si, long long sj) {
   using C = typename Complex<R>::type;
-  constexpr int kRows = 2;
-  __shared__ C ybuf[2][32 * kRows][LANES];
-  const int l = threadIdx.x % LANES, i = threadIdx.x / LANES;
-  const int b = blockIdx.x * LANES + l;
+  extern __shared__ __align__(16) unsigned char ybuf_bytes[];
+  const int lanes = blockDim.x / 32;
+  C* ybuf = reinterpret_cast<C*>(ybuf_bytes);  // [2][n][lanes]
+  const int l = threadIdx.x % lanes, i = threadIdx.x / lanes;
+  const int b = blockIdx.x * lanes + l;
   const bool live = b < B;
   C zero;
   zero.x = 0;
   zero.y = 0;
-#pragma unroll
-  for (int h = 0; h < kRows; ++h) {
-    const int r = i + 32 * h;
-    if (r < n) ybuf[0][r][l] = live ? y0[(size_t)r * B + b] : zero;
-  }
+  for (int r = i; r < n; r += 32) ybuf[r * lanes + l] = live ? y0[(size_t)r * B + b] : zero;
   __syncthreads();
 
   int cur = 0;
   for (int t = 0; t < T; ++t) {
-#pragma unroll
-    for (int h = 0; h < kRows; ++h) {
-      const int r = i + 32 * h;
-      if (r < n) {
-        const C* row = props + (long long)t * st + (long long)r * si + b;
-        R ar = 0, ai = 0;
-        for (int m = 0; m < n; ++m) {
-          const C u = live ? __ldcs(row + m * sj) : zero;
-          const C y = ybuf[cur][m][l];
-          ar = ar + (u.x * y.x - u.y * y.y);
-          ai = ai + (u.x * y.y + u.y * y.x);
-        }
-        C v;
-        v.x = ar;
-        v.y = ai;
-        ybuf[cur ^ 1][r][l] = v;
+    const C* y_now = ybuf + (size_t)cur * n * lanes;
+    C* y_next = ybuf + (size_t)(cur ^ 1) * n * lanes;
+    for (int r = i; r < n; r += 32) {
+      const C* row = props + (long long)t * st + (long long)r * si + b;
+      R ar = 0, ai = 0;
+      for (int m = 0; m < n; ++m) {
+        const C u = live ? __ldcs(row + m * sj) : zero;
+        const C y = y_now[m * lanes + l];
+        ar = ar + (u.x * y.x - u.y * y.y);
+        ai = ai + (u.x * y.y + u.y * y.x);
       }
+      C v;
+      v.x = ar;
+      v.y = ai;
+      y_next[r * lanes + l] = v;
     }
     __syncthreads();
     cur ^= 1;
   }
-#pragma unroll
-  for (int h = 0; h < kRows; ++h) {
-    const int r = i + 32 * h;
-    if (live && r < n) out[(size_t)r * B + b] = ybuf[cur][r][l];
-  }
+  for (int r = i; r < n; r += 32)
+    if (live) out[(size_t)r * B + b] = ybuf[((size_t)cur * n + r) * lanes + l];
 }
 
 template <typename R>
 cudaError_t launch_wide(const void* props, const void* y0, void* out, int T, int n, int B,
                         long long st, long long si, long long sj, cudaStream_t stream) {
   using C = typename Complex<R>::type;
-  constexpr int LANES = 8;
-  chain_apply_wide_kernel<R, LANES><<<(B + LANES - 1) / LANES, 32 * LANES, 0, stream>>>(
+  int lanes = kWideLanes;
+  while (lanes > 1 && 2 * (size_t)n * lanes * sizeof(C) > kSharedLimit) lanes /= 2;
+  const size_t smem = 2 * (size_t)n * lanes * sizeof(C);
+  if (smem > kSharedLimit) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(chain_apply_wide_kernel<R>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  chain_apply_wide_kernel<R><<<(B + lanes - 1) / lanes, 32 * lanes, smem, stream>>>(
       (const C*)props, (const C*)y0, (C*)out, T, n, B, st, si, sj);
   return cudaGetLastError();
 }
@@ -201,7 +205,7 @@ extern "C" {
 int chain_apply_launch(const void* props, const void* y0, void* out, int T, int n, int B,
                        long long st, long long si, long long sj, int double_precision,
                        void* stream) {
-  if (T < 1 || n < 1 || n > 64 || B < 1) return (int)cudaErrorInvalidValue;
+  if (T < 1 || n < 1 || n > kMaxN || B < 1) return (int)cudaErrorInvalidValue;
   const void* p = props;
   const void* y = y0;
   void* o = out;

@@ -25,7 +25,8 @@ pairs of ``ops/trig_reduce.py`` are replaced by native FP64).
 
 Two implementations of the same arithmetic:
 
-- ``csrc/adaptive_sweep.cu``: one CUDA thread block per tile (Hopper).
+- ``csrc/adaptive_sweep.cu``: one thread-block cluster per tile (Hopper), a
+  member per lane group with its stages in registers (:func:`launch_shape`).
 - :func:`sweep_dopri5_lockstep_plain`: eager PyTorch, batched over tiles.
 
 :func:`sweep_dopri5_lockstep` runs the kernel for CUDA tensors and the twin
@@ -215,13 +216,129 @@ sweep_dopri5_lockstep.launches = 0
 # ---------------------------------------------------------------------------
 # CUDA kernel launch
 # ---------------------------------------------------------------------------
+# Threads per block of the kernel's instantiations by rows per lane (their
+# __launch_bounds__: 64 registers a thread at 1,024, 128 at 512)
+MAX_THREADS = {1: 1024, 2: 1024, 4: 512}
+# blocks per tile; 16 is the card's non-portable cluster size
+CLUSTER_SIZES = (1, 2, 4, 8, 16)
+STAGES = 6  # new RHS stages per step, whose tables a block forms per pass
+# shared memory a block keeps within, where it can, so that two share an SM
+SHARED_TARGET_BYTES = MAX_SHARED_BYTES // 2
+_ERR_RESIDENT = 1002  # the launch's code for a shape the card co-schedules no cluster of
+CONTROL_BYTES = 304  # the kernel's per-block control block (sizeof, padded to 16)
+
 _PTR = ctypes.c_void_p
 _ARGTYPES = (
-    [_PTR] * 17
+    [_PTR] * 19
     + [ctypes.c_int] * 8
     + [ctypes.c_double] * 6
-    + [ctypes.c_int, _PTR]
+    + [ctypes.c_int] * 6
+    + [_PTR]
 )
+
+
+@dataclass(frozen=True)
+class LaunchShape:
+    """How the kernel lays a tile over the card: a cluster of ``cluster``
+    blocks of ``threads`` threads; a member is ``lanes`` lanes of one warp,
+    each owning ``rows`` rows; a lane group runs ``members_per_group``
+    members one after the other (1: the state stays in registers for the
+    whole call); the block forms ``stages_per_pass`` stages' tables at once
+    in ``smem_bytes`` of shared memory."""
+
+    cluster: int
+    lanes: int
+    rows: int
+    threads: int
+    members_per_group: int
+    stages_per_pass: int
+    smem_bytes: int
+
+
+def shared_bytes(n: int, k: int, stages: int, threads: int, lanes: int) -> int:
+    """Dynamic shared memory of one block (the layout in the source): the
+    control block, the complex tables and carrier phases of ``stages``
+    stages, the per-group coefficients of the any-k instantiation, 32 warp
+    maxima, the exchange."""
+    groups = threads // lanes
+    return (CONTROL_BYTES + 8 * stages * ((k + 1) * n * n + k)
+            + 4 * ((0 if k == 2 else groups * k) + 32 + 32))
+
+
+def _pow2_at_least(x: int) -> int:
+    return 1 << max(0, (x - 1).bit_length())
+
+
+def candidate_shapes(n: int, k: int, tile_b: int):
+    """Every launch shape that keeps each member's state in registers (one
+    member per lane group): G in ``CLUSTER_SIZES`` dividing ``tile_b``, R in
+    (1, 2, 4) rows per lane with P = the power of two at least n / R (at most
+    32; no empty row block)."""
+    shapes = []
+    for rows in MAX_THREADS:
+        lanes = _pow2_at_least(-(-n // rows))
+        if lanes > 32 or lanes * (rows - 1) >= n:
+            continue
+        for cluster in CLUSTER_SIZES:
+            if tile_b % cluster:
+                continue
+            threads = tile_b // cluster * lanes
+            if threads <= MAX_THREADS[rows]:
+                shapes.append(_with_tables(n, k, cluster, lanes, rows, threads, 1))
+    return shapes
+
+
+def _with_tables(n, k, cluster, lanes, rows, threads, per_group) -> LaunchShape:
+    """The shape with the most stages per table pass that fits: within
+    ``SHARED_TARGET_BYTES`` where one stage does, else within
+    ``MAX_SHARED_BYTES``."""
+    for limit in (SHARED_TARGET_BYTES, MAX_SHARED_BYTES):
+        for stages in (6, 3, 2, 1):
+            smem = shared_bytes(n, k, stages, threads, lanes)
+            if smem <= limit:
+                return LaunchShape(cluster, lanes, rows, threads, per_group, stages, smem)
+    raise ValueError(
+        f"the frame-rotated operator tables of one stage need "
+        f"{shared_bytes(n, k, 1, threads, lanes)} bytes of shared memory (n={n}, k={k}); a "
+        f"block may use {MAX_SHARED_BYTES}."
+    )
+
+
+def shape_for(n: int, k: int, tile_b: int, cluster: int) -> LaunchShape:
+    """The launch shape at clusters of ``cluster`` blocks (a divisor of
+    ``tile_b``) with the fewest rows per lane that leave P <= 32: one member
+    per lane group where the block holds them, else as few lane groups per
+    block as divide the members, each running several members from a
+    scratch buffer."""
+    if not 1 <= n <= MAX_N:
+        raise ValueError(f"the CUDA sweep kernel takes n <= {MAX_N}; got n={n}.")
+    if cluster not in CLUSTER_SIZES or tile_b % cluster:
+        raise ValueError(f"cluster must be one of {CLUSTER_SIZES} dividing tile_b={tile_b}.")
+    rows = next(r for r in MAX_THREADS if _pow2_at_least(-(-n // r)) <= 32)
+    lanes = _pow2_at_least(-(-n // rows))
+    members = tile_b // cluster
+    groups = max(g for g in range(1, MAX_THREADS[rows] // lanes + 1) if members % g == 0)
+    return _with_tables(n, k, cluster, lanes, rows, groups * lanes, members // groups)
+
+
+def launch_shape(n: int, k: int, tile_b: int) -> LaunchShape:
+    """The kernel's launch shape for state dimension ``n``, ``k`` operators
+    and tiles of ``tile_b`` members (pure; the card is not asked).
+
+    Among :func:`candidate_shapes` (clusters of 16 included: Hopper takes
+    them with the non-portable attribute), the largest cluster, which spreads
+    a tile over the most SMs; at that cluster the block nearest 256 threads
+    (the fewer rows on a tie). At the main row (n = 16, tile_b = 512) that is
+    16 blocks of 256 threads, 8 lanes of 2 rows per member: the fastest shape
+    measured there (``scripts/torch_adaptive_sweep_time.py``). Where no shape
+    keeps a member in registers (a tile too large for a cluster of 16
+    blocks), :func:`shape_for` at the largest cluster dividing ``tile_b``."""
+    if not 1 <= n <= MAX_N:
+        raise ValueError(f"the CUDA sweep kernel takes n <= {MAX_N}; got n={n}.")
+    shapes = candidate_shapes(n, k, tile_b)
+    if shapes:
+        return max(shapes, key=lambda s: (s.cluster, -abs(s.threads.bit_length() - 9), -s.rows))
+    return shape_for(n, k, tile_b, max(g for g in CLUSTER_SIZES if tile_b % g == 0))
 
 
 def _kernel_lib():
@@ -230,35 +347,48 @@ def _kernel_lib():
     lib = _build.load("adaptive_sweep")
     lib.adaptive_sweep_launch.argtypes = _ARGTYPES
     lib.adaptive_sweep_launch.restype = ctypes.c_int
+    lib.adaptive_sweep_active_clusters.argtypes = [ctypes.c_int] * 9
+    lib.adaptive_sweep_active_clusters.restype = ctypes.c_int
+    lib.adaptive_sweep_smem_bytes.argtypes = [ctypes.c_int] * 5
+    lib.adaptive_sweep_smem_bytes.restype = ctypes.c_longlong
     lib.adaptive_sweep_error_string.argtypes = [ctypes.c_int]
     lib.adaptive_sweep_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def block_threads(tile_b: int) -> int:
-    """Threads per block: the largest power of two dividing ``tile_b``, at
-    most 256 (the block's max-reduction is a power-of-two tree)."""
-    threads = 1
-    while threads < 256 and tile_b % (2 * threads) == 0:
-        threads *= 2
-    return threads
+def _shape_args(shape: LaunchShape):
+    return (shape.cluster, shape.lanes, shape.rows, shape.threads, shape.members_per_group,
+            shape.stages_per_pass)
 
 
-def shared_bytes(n: int, k: int, tile_b: int) -> int:
-    """Dynamic shared memory of one block (see the layout in the source)."""
-    return 4 * (2 * (k + 1) * n * n + 2 * k + k * tile_b + block_threads(tile_b))
-
-
-def _launch_kernel(inputs: SweepInputs, record_steps: bool):
-    n, k, B, tile_b = inputs.n, inputs.k, inputs.batch, inputs.tile_b
-    if n > MAX_N:
-        raise ValueError(f"the CUDA sweep kernel takes n <= {MAX_N}; got n={n}.")
-    smem = shared_bytes(n, k, tile_b)
-    if smem > MAX_SHARED_BYTES:
-        raise ValueError(
-            f"the frame-rotated operator tables need {smem} bytes of shared memory "
-            f"(n={n}, k={k}, tile_b={tile_b}); a block may use {MAX_SHARED_BYTES}."
+def active_clusters(n: int, k: int, tile_b: int, shape: Optional[LaunchShape] = None) -> int:
+    """Clusters of the launch shape (by default :func:`launch_shape`'s) that
+    the card co-schedules, by the CUDA occupancy calculator."""
+    shape = launch_shape(n, k, tile_b) if shape is None else shape
+    lib = _kernel_lib()
+    count = lib.adaptive_sweep_active_clusters(n, k, tile_b, *_shape_args(shape))
+    if count < 0:
+        raise RuntimeError(
+            f"adaptive_sweep occupancy query for {shape}: "
+            f"{lib.adaptive_sweep_error_string(-count).decode()}"
         )
+    return count
+
+
+def _launch_kernel(inputs: SweepInputs, record_steps: bool, shape: Optional[LaunchShape] = None,
+                   steps_out: Optional[torch.Tensor] = None,
+                   clocks: Optional[torch.Tensor] = None):
+    """Launch the kernel at :func:`launch_shape`'s shape, or at ``shape``
+    (the card tests and the timing script force one). ``steps_out``, an
+    int32 tensor of one entry per tile, receives the steps each tile took
+    (rejected ones included); ``clocks``, an int64 (blocks, 4) tensor, the
+    cycles thread 0 of each block spent forming tables, in the stages, in
+    the exchange and in the control."""
+    n, k, B, tile_b = inputs.n, inputs.k, inputs.batch, inputs.tile_b
+    if shape is None:
+        shape = launch_shape(n, k, tile_b)
+    elif n > MAX_N:
+        raise ValueError(f"the CUDA sweep kernel takes n <= {MAX_N}; got n={n}.")
     device = inputs.y0r.device
     n_tiles = B // tile_b
     n_eval = inputs.n_eval
@@ -267,7 +397,12 @@ def _launch_kernel(inputs: SweepInputs, record_steps: bool):
     evalr = torch.zeros((n_eval, n, B), dtype=torch.float32, device=device)
     evali = torch.zeros_like(evalr)
     rec = torch.zeros((n_tiles, inputs.max_steps), dtype=torch.float64, device=device)
-    scratch = torch.empty((n_tiles, 9, 2, n, tile_b), dtype=torch.float32, device=device)
+    scratch = None
+    if shape.members_per_group > 1:
+        scratch = torch.empty(
+            (n_tiles * shape.cluster, shape.members_per_group, 9, shape.rows, shape.threads, 2),
+            dtype=torch.float32, device=device,
+        )
 
     def ptr(t):
         return None if t is None or t.numel() == 0 else t.data_ptr()
@@ -280,13 +415,17 @@ def _launch_kernel(inputs: SweepInputs, record_steps: bool):
             ptr(inputs.omega), ptr(inputs.freqs), ptr(inputs.envr), ptr(inputs.envi),
             ptr(inputs.eval_ts), ptr(inputs.y0r), ptr(inputs.y0i), ptr(outr), ptr(outi),
             ptr(evalr), ptr(evali), ptr(rec) if record_steps else None, ptr(scratch),
-            n, k, inputs.n_env, n_eval, B, tile_b, inputs.max_steps, int(record_steps),
+            ptr(steps_out), ptr(clocks), n, k, inputs.n_env, n_eval, B, tile_b,
+            inputs.max_steps, int(record_steps),
             inputs.t0, inputs.dur, inputs.env_dt, inputs.atol, inputs.rtol, inputs.h0,
-            block_threads(tile_b), stream,
+            *_shape_args(shape), stream,
         )
+    if code == _ERR_RESIDENT:
+        raise RuntimeError(f"the card co-schedules no cluster of the adaptive_sweep shape {shape}.")
     if code != 0:
         raise RuntimeError(
-            f"adaptive_sweep kernel launch failed: {lib.adaptive_sweep_error_string(code).decode()}"
+            f"adaptive_sweep kernel launch at {shape} failed: "
+            f"{lib.adaptive_sweep_error_string(code).decode()}"
         )
     sweep_dopri5_lockstep.launches += 1
     final = torch.complex(outr, outi)

@@ -15,9 +15,10 @@ the sweep batch minor, so neighbouring threads read neighbouring addresses.
   forward and kernel backward.
 
 For CUDA tensors (float32; float64 too for :func:`expm_taylor_bol`, the
-per-step ``expm`` of the FP64 Magnus Dysolve) the three functions launch the
-three ``__global__`` entry points of ``csrc/batched_linalg.cu``, which share
-one complex product routine; for CPU tensors they run the plain versions
+per-step ``expm`` of the FP64 Magnus Dysolve; n up to ``MAX_N``) the three
+functions launch the three ``__global__`` entry points of
+``csrc/batched_linalg.cu``, which share one complex product routine; for CPU
+tensors they run the plain versions
 (:func:`matmul_bol_plain`, :func:`expm_taylor_bol_plain`,
 :func:`expm_taylor_bol_bwd_plain`) in the dtype they are given. The kernels
 fuse multiply-adds, so they agree with the plain versions to float32
@@ -48,7 +49,9 @@ __all__ = [
     "from_bol",
 ]
 
-MAX_N = 64  # the kernels keep whole matrices of a lane in shared memory (227 KB a block)
+# the kernels keep a lane's matrices in shared memory while they fit a block's
+# 227 KB (n <= 98 for the product and the expm), in a device work buffer above
+MAX_N = 256
 
 
 def to_bol(A):
@@ -137,6 +140,7 @@ matmul_bol.launches = 0
 expm_taylor_bol.launches = 0
 expm_taylor_bol_bwd.launches = 0
 _WRAPPERS = {"matmul": matmul_bol, "expm": expm_taylor_bol, "expm_bwd": expm_taylor_bol_bwd}
+_KINDS = {"matmul": 0, "expm": 1, "expm_bwd": 2}  # the library's kind of each kernel
 
 
 # --------------------------------------------------------------------------
@@ -147,13 +151,11 @@ def _kernel_lib():
 
     lib = _build.load("batched_linalg")
     pointer, integer = ctypes.c_void_p, ctypes.c_int
-    lib.matmul_bol_launch.argtypes = [pointer] * 6 + [integer] * 4 + [pointer]
-    lib.expm_bol_launch.argtypes = [pointer] * 4 + [integer] * 6 + [pointer]
-    lib.expm_bwd_bol_launch.argtypes = [pointer] * 7 + [integer] * 7 + [pointer]
-    lib.expm_bwd_bol_blocks.argtypes = [integer] * 2
-    lib.expm_bwd_bol_blocks.restype = integer
-    lib.expm_bwd_bol_scratch_floats.argtypes = [integer] * 4
-    lib.expm_bwd_bol_scratch_floats.restype = ctypes.c_longlong
+    lib.matmul_bol_launch.argtypes = [pointer] * 6 + [integer] * 4 + [pointer] * 2
+    lib.expm_bol_launch.argtypes = [pointer] * 4 + [integer] * 6 + [pointer] * 2
+    lib.expm_bwd_bol_launch.argtypes = [pointer] * 7 + [integer] * 6 + [pointer]
+    lib.batched_linalg_work_bytes.argtypes = [integer] * 6
+    lib.batched_linalg_work_bytes.restype = ctypes.c_longlong
     for fn in (lib.matmul_bol_launch, lib.expm_bol_launch, lib.expm_bwd_bol_launch):
         fn.restype = integer
     lib.batched_linalg_error_string.argtypes = [integer]
@@ -203,21 +205,25 @@ def _launch_kernel(which: str, planes, order: int = 0, squarings: int = 0):
     lib = _kernel_lib()
     with torch.cuda.device(first.device):
         stream = torch.cuda.current_stream(first.device).cuda_stream
+        # the device work buffer: the backward's stage operands, and every
+        # kernel's working matrices where they do not fit shared memory
+        nbytes = int(lib.batched_linalg_work_bytes(_KINDS[which], n, B, order, squarings,
+                                                   int(double)))
+        if nbytes < 0:
+            raise ValueError(f"the CUDA batched_linalg {which} kernel refuses n={n}, B={B}.")
+        work = torch.empty(nbytes, dtype=torch.uint8, device=first.device) if nbytes else None
+        work_ptr = None if work is None else work.data_ptr()
         if which == "matmul":
             code = lib.matmul_bol_launch(
-                *pointers, out.data_ptr(), out.data_ptr() + 4, n, B, *strides, stream)
+                *pointers, out.data_ptr(), out.data_ptr() + 4, n, B, *strides, work_ptr, stream)
         elif which == "expm":
             code = lib.expm_bol_launch(
                 *pointers, out.data_ptr(), out.data_ptr() + out.element_size() // 2, n, B, order,
-                squarings, *strides, int(double), stream)
+                squarings, *strides, int(double), work_ptr, stream)
         else:
-            blocks = int(lib.expm_bwd_bol_blocks(n, B))
-            scratch = torch.empty(
-                int(lib.expm_bwd_bol_scratch_floats(n, blocks, order, squarings)),
-                dtype=torch.float32, device=first.device)
             code = lib.expm_bwd_bol_launch(
-                *pointers, out.data_ptr(), out.data_ptr() + 4, scratch.data_ptr(), n, B, order,
-                squarings, blocks, *strides, stream)
+                *pointers, out.data_ptr(), out.data_ptr() + 4, work_ptr, n, B, order, squarings,
+                *strides, stream)
     if code != 0:
         raise RuntimeError(
             f"batched_linalg {which} kernel launch failed: "

@@ -31,7 +31,7 @@ import torch
 
 __all__ = ["chain_apply_bol", "chain_apply_bol_ad", "chain_apply_bol_plain"]
 
-MAX_N = 64  # the kernel's cap on the state dimension (two rows per thread above 32)
+MAX_N = 4096  # the kernel's cap on the state dimension (rows i, i + 32, ... per thread above 32)
 
 
 def _check(props, y0):

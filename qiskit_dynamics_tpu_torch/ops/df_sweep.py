@@ -23,7 +23,11 @@ Two implementations of the same arithmetic:
 
 :func:`sweep_expm_magnus_df` (and :func:`sweep_expm_magnus_df_pallas`, the
 same launch under the Pallas entry point's name) runs the kernel for a
-``y0`` on the card and the plain version for a ``y0`` on the CPU.
+``y0`` on the card and the plain version for a ``y0`` on the CPU. The
+kernel has two sweeps: the tensor-core one up to ``MAX_N``
+(``csrc/df_magnus_sweep.cu``) and, above it up to ``MAX_WIDE_N``, one block
+per member with FP64 products on the FP64 pipes (``csrc/df_magnus_wide.cu``);
+:func:`kernel_for` picks one by n.
 
 Not carried: the double-float32 helpers (``_dfi`` ... ``_comm32``), the
 host-link workarounds ``_frame_phases_from_diag`` and
@@ -58,7 +62,17 @@ MAGNUS_NODES = {
     3: np.array([0.5 - np.sqrt(15) / 10, 0.5, 0.5 + np.sqrt(15) / 10]),
 }
 
-MAX_N = 32  # the kernel pads n with zeros to 8, 16, 24 or 32
+MAX_N = 32  # the tensor-core sweep pads n with zeros to 8, 16, 24 or 32
+MAX_WIDE_N = 256  # the one-block-per-member sweep above MAX_N (kWideMaxN)
+
+
+def kernel_for(n: int) -> str:
+    """Which sweep of kernel B8 a solve dimension ``n`` runs: ``"dmma"``
+    (one warp per member, products on the FP64 tensor cores) up to
+    ``MAX_N``, ``"wide"`` (one block per member) above it."""
+    return "dmma" if n <= MAX_N else "wide"
+
+
 MAX_MEMBERS_PER_BLOCK = 8  # warps per block, one member each
 SMS = 132  # streaming multiprocessors of an H100 SXM
 SM_SHARED_BYTES = 233472  # shared memory of one SM (228 KB)
@@ -329,6 +343,19 @@ def _kernel_lib():
     return lib
 
 
+def _wide_lib():
+    from ..kernels import _build
+
+    lib = _build.load("df_magnus_wide")
+    lib.df_magnus_wide_work_bytes.argtypes = [ctypes.c_int] * 4
+    lib.df_magnus_wide_work_bytes.restype = ctypes.c_longlong
+    lib.df_magnus_wide_launch.argtypes = [_PTR] * 11 + [ctypes.c_int] * 9 + [_PTR]
+    lib.df_magnus_wide_launch.restype = ctypes.c_int
+    lib.df_magnus_wide_error_string.argtypes = [ctypes.c_int]
+    lib.df_magnus_wide_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def padded(n: int) -> int:
     """The kernel's padded dimension: n rounded up to a multiple of 8 (the
     FP64 tensor-core tile)."""
@@ -395,12 +422,10 @@ def _launch_kernel(inputs: DfInputs, chunk_b: int, rotated: Optional[bool] = Non
     members. ``rotated`` forces a table layout (the timing script compares
     the two); by default it follows :func:`rotated_tables`."""
     n, k, T, B = inputs.n, inputs.k, inputs.steps, inputs.batch
-    if n > MAX_N:
-        raise ValueError(
-            f"the CUDA df_magnus_sweep kernel takes n <= {MAX_N}; got n={n} (larger solve "
-            "dimensions in FP64 wait for the complex128 member and polynomial engines, "
-            "ROADMAP A8)."
-        )
+    if n > MAX_WIDE_N:
+        raise ValueError(f"the CUDA df_magnus_sweep kernel takes n <= {MAX_WIDE_N}; got n={n}.")
+    if kernel_for(n) == "wide":
+        return _launch_wide(inputs, chunk_b)
     device = inputs.y0.device
     n_nodes = inputs.taus.shape[1]
     lib = _kernel_lib()
@@ -432,6 +457,40 @@ def _launch_kernel(inputs: DfInputs, chunk_b: int, rotated: Optional[bool] = Non
                 int(inputs.hermitian), int(rotated), shape.members_per_block, b0, nb, B, stream,
             )
             _check(lib, code, "sweep")
+            sweep_expm_magnus_df.launches += 1
+    return out, (evals if inputs.n_eval else None)
+
+
+def _launch_wide(inputs: DfInputs, chunk_b: int):
+    """The sweep above ``MAX_N`` (``csrc/df_magnus_wide.cu``): one block per
+    member from the untabled operators, over chunks of ``chunk_b`` members."""
+    n, k, T, B = inputs.n, inputs.k, inputs.steps, inputs.batch
+    device = inputs.y0.device
+    n_nodes = inputs.taus.shape[1]
+    lib = _wide_lib()
+    out = torch.empty((n, B), dtype=torch.complex128, device=device)
+    evals = torch.zeros((inputs.n_eval, n, B), dtype=torch.complex128, device=device)
+
+    def ptr(t):
+        return None if t is None or t.numel() == 0 else t.data_ptr()
+
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        for b0 in range(0, B, chunk_b):
+            nb = min(chunk_b, B - b0)
+            nbytes = int(lib.df_magnus_wide_work_bytes(n, k, n_nodes, nb))
+            if nbytes < 0:
+                raise ValueError(f"the CUDA df_magnus_sweep kernel refuses n={n}, {nb} members.")
+            work = torch.empty(nbytes, dtype=torch.uint8, device=device) if nbytes else None
+            code = lib.df_magnus_wide_launch(
+                ptr(inputs.static), ptr(inputs.ops), ptr(inputs.omega), ptr(inputs.taus),
+                ptr(inputs.step), ptr(inputs.coef), ptr(inputs.slots), ptr(inputs.y0), ptr(out),
+                ptr(evals), ptr(work), n, k, T, n_nodes, inputs.order, int(inputs.hermitian),
+                b0, nb, B, stream,
+            )
+            if code != 0:
+                raise RuntimeError(f"df_magnus_wide kernel launch failed: "
+                                   f"{lib.df_magnus_wide_error_string(code).decode()}")
             sweep_expm_magnus_df.launches += 1
     return out, (evals if inputs.n_eval else None)
 

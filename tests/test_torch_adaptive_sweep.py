@@ -26,6 +26,8 @@ from qiskit_dynamics_tpu.solvers.fused_sweep import _expand_lanes as jax_expand_
 
 from qiskit_dynamics_tpu_torch.kernels import _build
 from qiskit_dynamics_tpu_torch.ops import rk_tableaus
+from qiskit_dynamics_tpu_torch.ops import adaptive_sweep as asw
+from qiskit_dynamics_tpu_torch.ops import batched_linalg, chain_apply, df_sweep
 from qiskit_dynamics_tpu_torch.ops.adaptive_sweep import (
     prepare_inputs,
     sweep_dopri5_lockstep,
@@ -186,3 +188,99 @@ def test_invalid_arguments_raise(problem, change, message):
             p["static"], p["ops"], p["omega"], p["freqs"], amps, torch.as_tensor(p["y0"]),
             **kwargs,
         )
+
+
+# ---------------------------------------------------------------------------
+# the kernel's launch shape (pure; no card): every shape the wrapper can pick
+# or a caller can force must be one the kernel takes
+# ---------------------------------------------------------------------------
+def _assert_valid(shape, n, k, tile_b):
+    assert tile_b % shape.cluster == 0 and shape.cluster in asw.CLUSTER_SIZES
+    assert shape.lanes & (shape.lanes - 1) == 0 and shape.lanes <= 32
+    assert shape.lanes * shape.rows >= n and shape.rows in asw.MAX_THREADS
+    assert shape.threads <= asw.MAX_THREADS[shape.rows] <= 1024
+    assert shape.threads % shape.lanes == 0
+    assert shape.threads // shape.lanes * shape.members_per_group == tile_b // shape.cluster
+    assert 1 <= shape.stages_per_pass <= asw.STAGES
+    assert shape.smem_bytes == asw.shared_bytes(n, k, shape.stages_per_pass, shape.threads,
+                                                 shape.lanes)
+    assert shape.smem_bytes <= asw.MAX_SHARED_BYTES
+
+
+@pytest.mark.parametrize("tile_b", [4, 12, 256, 512])
+@pytest.mark.parametrize("n", [1, 4, 9, 16, 27, 33, 64])
+def test_launch_shape_invariants(n, tile_b):
+    shape = asw.launch_shape(n, 2, tile_b)
+    forced = [asw.shape_for(n, 2, tile_b, g) for g in asw.CLUSTER_SIZES if tile_b % g == 0]
+    for s in [shape, *asw.candidate_shapes(n, 2, tile_b), *forced]:
+        _assert_valid(s, n, 2, tile_b)
+    for s in asw.candidate_shapes(n, 2, tile_b):
+        assert s.members_per_group == 1
+
+
+@pytest.mark.parametrize("k", [1, 3, 6])
+def test_launch_shape_any_k(k):
+    """The any-k instantiation keeps its coefficients in shared memory; the
+    tables of fewer stages per pass where six do not fit."""
+    for n in (4, 16, 40):
+        _assert_valid(asw.launch_shape(n, k, 512), n, k, 512)
+    assert asw.launch_shape(40, 6, 512).stages_per_pass < asw.STAGES
+
+
+def test_launch_shape_main_row():
+    """The main row (n = 16, k = 2, tile_b = 512): clusters of 16 blocks of 256
+    threads, 8 lanes of 2 rows per member, all six stages' tables per pass
+    (the fastest shape measured on the card)."""
+    shape = asw.launch_shape(16, 2, 512)
+    assert (shape.cluster, shape.lanes, shape.rows, shape.threads) == (16, 8, 2, 256)
+    assert shape.members_per_group == 1 and shape.stages_per_pass == 6
+
+
+def test_launch_shape_refuses():
+    with pytest.raises(ValueError, match="n <= 64"):
+        asw.launch_shape(65, 2, 512)
+    with pytest.raises(ValueError, match="shared memory"):
+        asw.launch_shape(64, 7, 512)  # one stage's tables take 262 KB
+    with pytest.raises(ValueError, match="dividing tile_b"):
+        asw.shape_for(16, 2, 12, 8)
+
+
+def test_launch_constants_match_the_source():
+    source = (_build.SOURCE_DIR / "adaptive_sweep.cu").read_text()
+    assert f"kMaxN = {asw.MAX_N};" in source
+    assert f"kMaxCluster = {max(asw.CLUSTER_SIZES)};" in source
+    assert f"kStages = {asw.STAGES};" in source
+    assert "return R >= 4 ? 512 : 1024;" in source
+    assert asw.MAX_THREADS == {1: 1024, 2: 1024, 4: 512}
+
+
+def test_df_sweep_kernel_for():
+    """B8's two sweeps: the tensor-core one up to n = 32, one block per member
+    above."""
+    assert [df_sweep.kernel_for(n) for n in (1, 32, 33, 36, df_sweep.MAX_WIDE_N)] == [
+        "dmma", "dmma", "wide", "wide", "wide"]
+
+
+@pytest.mark.parametrize("source, constant, value", [
+    ("df_magnus_sweep.cu", "kMaxN", df_sweep.MAX_N),
+    ("df_magnus_wide.cu", "kWideMaxN", df_sweep.MAX_WIDE_N),
+    ("df_magnus_wide.cu", "kMaxN", df_sweep.MAX_N),
+    ("chain_apply.cu", "kMaxN", chain_apply.MAX_N),
+    ("batched_linalg.cu", "kMaxN", batched_linalg.MAX_N),
+])
+def test_kernel_caps_match_the_source(source, constant, value):
+    """Each wrapper's cap is its kernel's: no dimension below it is refused."""
+    text = (_build.SOURCE_DIR / source).read_text()
+    assert f"{constant} = {value};" in text
+
+
+def test_no_cuda_route_to_the_plain_versions():
+    """The ops take the plain version for CPU tensors only: another device
+    gets no silent plain path."""
+    meta = torch.zeros((65, 65, 2), device="meta")
+    with pytest.raises(RuntimeError, match="no path for device meta"):
+        batched_linalg.matmul_bol(meta, meta, meta, meta)
+    props = torch.zeros((1, 65, 65, 2), dtype=torch.complex64, device="meta")
+    with pytest.raises(RuntimeError, match="no path for device meta"):
+        chain_apply.chain_apply_bol(props, torch.zeros((65, 2), dtype=torch.complex64,
+                                                       device="meta"))

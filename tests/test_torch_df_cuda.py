@@ -1,6 +1,7 @@
 """The native-FP64 kernels against their plain versions, on the card.
 
-Kernel B8 (``csrc/df_magnus_sweep.cu``, the Magnus-2/3 sweep in complex128)
+Kernel B8 (``csrc/df_magnus_sweep.cu``, the Magnus-2/3 sweep in complex128,
+its tensor-core sweep up to n = 32 and its one-block-per-member sweep above)
 and the complex128 instantiations of B5 (``csrc/chain_apply.cu``) and B6
 (``csrc/batched_linalg.cu``'s Taylor expm). These tests need an NVIDIA GPU
 with nvcc; without one they skip. On the card run them with
@@ -169,9 +170,68 @@ def test_df_sweep_table_layouts(cuda, rotated):
 
 
 def test_df_sweep_kernel_rejects(cuda):
-    args, kwargs = df_problem(dfs.MAX_N + 1, 3, True, cuda)
-    with pytest.raises(ValueError, match="n <= 32"):
+    args, kwargs = df_problem(dfs.MAX_WIDE_N + 1, 3, True, cuda, members=2, steps=1)
+    with pytest.raises(ValueError, match=f"n <= {dfs.MAX_WIDE_N}"):
         dfs.sweep_expm_magnus_df(*args, **kwargs)
+
+
+# past 32: 33, 36 (a dim-6 vectorized Lindblad model), 45 (the last whose
+# planes fit shared memory) and 46, 64 (planes in device memory)
+WIDE_DF_DIMS = (33, 36, 45, 46, 64)
+
+
+@pytest.mark.parametrize("uniform, slots", [(True, False), (False, True)])
+@pytest.mark.parametrize("hermitian", [False, True])
+@pytest.mark.parametrize("magnus_order", [2, 3])
+@pytest.mark.parametrize("n", WIDE_DF_DIMS)
+def test_df_sweep_wide_kernel_matches_plain(cuda, n, magnus_order, hermitian, uniform, slots):
+    """Above n = 32 the one-block-per-member sweep: the plain version's
+    result within float64 roundoff, one launch per chunk."""
+    assert dfs.kernel_for(n) == "wide"
+    args, kwargs = df_problem(n, magnus_order, uniform, cuda, steps=6)
+    kwargs.update(hermitian=hermitian, chunk_b=16)  # three launches, the last ragged
+    if slots:
+        kwargs["eval_slots"] = tuple(s // 2 if s % 2 == 1 else -1 for s in range(6))
+    before = dfs.sweep_expm_magnus_df.launches
+    out = dfs.sweep_expm_magnus_df(*args, **kwargs)
+    torch.cuda.synchronize()
+    assert dfs.sweep_expm_magnus_df.launches == before + 3
+    inputs = dfs.prepare_df_inputs(*args, **{k: v for k, v in kwargs.items() if k != "chunk_b"})
+    plain, plain_traj = dfs.sweep_expm_magnus_df_plain(inputs)
+    got = out if not slots else out[0]
+    assert got.dtype == torch.complex128 and got.shape == (n, MEMBERS)
+    assert float((got - plain).abs().max()) <= TOL
+    if slots:
+        assert out[1].shape == (3, n, MEMBERS)
+        assert float((out[1] - plain_traj).abs().max()) <= TOL
+        assert torch.equal(out[1][-1], out[0])
+
+
+def test_df32_lindblad_sweep_past_32(cuda):
+    """``fused_sweep_solve(precision="df32")`` of a vectorized dim-6 Lindblad
+    model (solve_dim 36) on the card: the CPU's result within float64
+    roundoff, through B8's wide sweep."""
+    from qiskit_dynamics_tpu_torch import Signal
+    from qiskit_dynamics_tpu_torch.benchmarks import lindblad_qudit_solver
+    from qiskit_dynamics_tpu_torch.solvers.fused_sweep import fused_sweep_solve
+
+    def run(device):
+        solver, rho0, carrier = lindblad_qudit_solver(dim=6, device=device)
+
+        def signals_fn(amp):
+            return [Signal(amp, carrier_freq=carrier)]
+
+        amps = torch.linspace(0.2, 1.0, 9, dtype=torch.float64, device=device)
+        return fused_sweep_solve(solver.model, signals_fn, amps, (0.0, 2.0), 0.1, rho0,
+                                 precision="df32")
+
+    before = dfs.sweep_expm_magnus_df.launches
+    got = run(cuda)
+    torch.cuda.synchronize()
+    assert dfs.sweep_expm_magnus_df.launches == before + 1
+    want = run("cpu")
+    assert got.device.type == "cuda" and got.shape == want.shape == (9, 6, 6)
+    assert float((got.cpu() - want).abs().max()) <= TOL
 
 
 def unitary_stack(gen, T, n, B):

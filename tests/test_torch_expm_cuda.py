@@ -12,7 +12,7 @@ Tolerances and their reasons:
   ``||G dt|| = 1.8``: 2e-5 in complex64 (float32 roundoff of 6 x 7 chained
   products, summed in another order: ~1e-6 per product at n = 256), 1e-12 in
   complex128.
-- B5 at n = 48 and 64: bit for bit (built without multiply-add contraction,
+- B5 at n = 48 to 129: bit for bit (built without multiply-add contraction,
   the same rounded operations in order). B6, B7, B10: 1e-5 on unit-norm
   inputs in float32 (float32 roundoff), 1e-12 for B6 in float64.
 - The device methods at dim 4 against the host DOP853 at 1e-12, in
@@ -34,7 +34,10 @@ from qiskit_dynamics_tpu_torch.ops import expm_chain_pallas as ecp
 pytestmark = pytest.mark.cuda
 
 B9_TOL = {torch.complex64: 2e-5, torch.complex128: 1e-12}
-WIDE_DIMS = (48, 64)
+# past 32 (a runtime n); 97: the last in shared memory for the product and the
+# expm, ragged tiles; 129: every lane's matrices in device memory, more tiles
+# than a block's threads
+WIDE_DIMS = (48, 64, 65, 97, 129)
 
 
 @pytest.fixture
@@ -138,16 +141,21 @@ def test_wide_batched_linalg_kernels(cuda, n):
 
 
 def test_wide_caps_raise_above_64(cuda):
-    n, B = 65, 3
-    props = torch.zeros((1, n, n, B), dtype=torch.complex64, device=cuda)
-    with pytest.raises(ValueError, match="n <= 64"):
-        ca.chain_apply_bol(props, torch.zeros((n, B), dtype=torch.complex64, device=cuda))
+    """Past the kernels' caps (n = 4096 for the chain, 256 for the products,
+    the expm and its backward, whose matrices go to device memory above 98)
+    the ops raise on the card."""
+    n = ca.MAX_N + 1
+    props = torch.zeros((1, n, n, 1), dtype=torch.complex64, device=cuda)
+    with pytest.raises(ValueError, match=f"n <= {ca.MAX_N}"):
+        ca.chain_apply_bol(props, torch.zeros((n, 1), dtype=torch.complex64, device=cuda))
+    del props
+    n, B = bl.MAX_N + 1, 3
     planes = [torch.zeros((n, n, B), device=cuda) for _ in range(4)]
-    with pytest.raises(ValueError, match="n <= 64"):
+    with pytest.raises(ValueError, match=f"n <= {bl.MAX_N}"):
         bl.matmul_bol(*planes)
-    with pytest.raises(ValueError, match="n <= 64"):
+    with pytest.raises(ValueError, match=f"n <= {bl.MAX_N}"):
         bl.expm_taylor_bol(*planes[:2])
-    with pytest.raises(ValueError, match="n <= 64"):
+    with pytest.raises(ValueError, match=f"n <= {bl.MAX_N}"):
         bl.expm_taylor_bol_bwd(*planes)
 
 

@@ -108,9 +108,10 @@ def test_chain_kernel_rejects(cuda):
         ca.chain_apply_bol(props, y0.to(torch.complex128))
     with pytest.raises(ValueError, match="at least one propagator"):
         ca.chain_apply_bol(props[:0], y0)
-    big = torch.zeros((1, 65, 65, 2), dtype=torch.complex64, device=cuda)
-    with pytest.raises(ValueError, match="n <= 64"):
-        ca.chain_apply_bol(big, torch.zeros((65, 2), dtype=torch.complex64, device=cuda))
+    n = ca.MAX_N + 1
+    big = torch.zeros((1, n, n, 1), dtype=torch.complex64, device=cuda)
+    with pytest.raises(ValueError, match=f"n <= {ca.MAX_N}"):
+        ca.chain_apply_bol(big, torch.zeros((n, 1), dtype=torch.complex64, device=cuda))
 
 
 @pytest.mark.parametrize("B", BATCHES)
@@ -188,6 +189,94 @@ def test_batched_linalg_kernels_reject(cuda):
         bl.expm_taylor_bol_bwd(*[p.double() for p in planes * 2])
     with pytest.raises(ValueError, match="shape mismatch"):
         bl.matmul_bol(planes[0], planes[1], planes[0], planes[1][:, :, :2])
-    big = unit_planes(np.random.default_rng(2), 65, 2, cuda)
-    with pytest.raises(ValueError, match="n <= 64"):
+    big = unit_planes(np.random.default_rng(2), bl.MAX_N + 1, 2, cuda)
+    with pytest.raises(ValueError, match=f"n <= {bl.MAX_N}"):
         bl.expm_taylor_bol(*big)
+
+
+# --------------------------------------------------------------------------
+# above n = 64 (a lane's matrices in device memory above 98) the kernels run
+# --------------------------------------------------------------------------
+def launch_counts():
+    return (ca.chain_apply_bol.launches, bl.matmul_bol.launches, bl.expm_taylor_bol.launches,
+            bl.expm_taylor_bol_bwd.launches)
+
+
+@pytest.mark.parametrize("n", [65, 80, 100])
+def test_ops_past_64_run_the_kernels(cuda, n):
+    """chain_apply_bol, matmul_bol, expm_taylor_bol and the gradients of
+    their ``_ad`` forms at n > 64 on the card: the CPU plain version's
+    results within float32 roundoff, each through its kernel."""
+    gen = np.random.default_rng(n)
+    before = launch_counts()
+    props = unitary_stack(gen, 3, n, 5)
+    y0 = (gen.normal(size=(n, 5)) + 1j * gen.normal(size=(n, 5))).astype(np.complex64)
+    got = ca.chain_apply_bol(torch.as_tensor(props, device=cuda), torch.as_tensor(y0, device=cuda))
+    want = ca.chain_apply_bol_plain(torch.as_tensor(props), torch.as_tensor(y0))
+    assert float((got.cpu() - want).abs().max()) <= TOL * np.sqrt(n)
+
+    planes = unit_planes(gen, n, 6, "cpu", count=4)
+    got = bl.matmul_bol(*[p.to(cuda) for p in planes])
+    assert max_diff([g.cpu() for g in got], bl.matmul_bol_plain(*planes)) <= TOL
+    got = bl.expm_taylor_bol(*[p.to(cuda) for p in planes[:2]], 8, 1)
+    assert max_diff([g.cpu() for g in got], bl.expm_taylor_bol_plain(*planes[:2], 8, 1)) <= TOL
+
+    grads = []
+    for device in (cuda, "cpu"):
+        xs = [p.to(device).requires_grad_(True) for p in planes[:2]]
+        pr, pi = bl.expm_taylor_bol_ad(*xs, 8, 1)
+        (pr * planes[2].to(device) + pi * planes[3].to(device)).sum().backward()
+        u = torch.as_tensor(props, device=device).requires_grad_(True)
+        out = ca.chain_apply_bol_ad(u, torch.as_tensor(y0, device=device))
+        (out.abs() ** 2).sum().backward()
+        grads.append([xs[0].grad, xs[1].grad, u.grad])
+    for g, w in zip(*grads):
+        assert float((g.cpu() - w).abs().max()) <= TOL * max(1.0, float(w.abs().max()))
+    # chain twice (plain and _ad), matmul once, expm twice, its backward once
+    assert tuple(a - b for a, b in zip(launch_counts(), before)) == (2, 1, 2, 1)
+
+
+def synthetic_solver(method, n, device, seed=5):
+    """A Dyson or Magnus solver of dimension ``n`` around seeded arrays in
+    place of a precomputed expansion (one drive, Chebyshev order 1 with the
+    imaginary part: four coefficients), complex64."""
+    from qiskit_dynamics_tpu_torch import interop
+
+    gen = np.random.default_rng(seed)
+
+    def anti_hermitian(scale):
+        a = gen.normal(size=(n, n)) + 1j * gen.normal(size=(n, n))
+        return -1j * scale * (a + a.conj().T) / (2 * np.sqrt(n))
+
+    udt, _ = np.linalg.qr(gen.normal(size=(n, n)) + 1j * gen.normal(size=(n, n)))
+    labels = [[0], [1], [2], [3], [0, 0], [0, 2]]
+    return interop.perturbative_solver_from_arrays(
+        operators=anti_hermitian(1.0)[None], frame_operator=None, dt=0.1,
+        carrier_freqs=np.array([5.0]), chebyshev_orders=[1], include_imag=[True], Udt=udt,
+        expansion_method=method, poly_constant=np.eye(n) if method == "dyson" else None,
+        poly_coefficients=np.stack([anti_hermitian(0.05) for _ in labels]),
+        poly_labels=labels, device=device, dtype=torch.complex64,
+    )
+
+
+@pytest.mark.parametrize("method", ["dyson", "magnus"])
+def test_perturbative_sweep_past_64(cuda, method):
+    """``DysonSolver``/``MagnusSolver.solve_sweep`` at dimension 65 on the card:
+    the CPU's result within complex64 roundoff, through the chain kernel (and
+    the expm kernel for Magnus)."""
+    from qiskit_dynamics_tpu_torch import Signal
+
+    def signals(amp):
+        return [Signal(lambda t: amp * torch.ones_like(t), carrier_freq=5.0)]
+
+    y0 = np.zeros(65, dtype=complex)
+    y0[0] = 1.0
+    amps = torch.linspace(0.2, 1.0, 7, dtype=torch.float64)
+    before = launch_counts()
+    got = synthetic_solver(method, 65, cuda).solve_sweep(0.0, 4, y0, signals, amps.to(cuda))
+    torch.cuda.synchronize()
+    rose = tuple(a - b for a, b in zip(launch_counts(), before))
+    assert rose == (1, 0, int(method == "magnus"), 0)
+    want = synthetic_solver(method, 65, "cpu").solve_sweep(0.0, 4, y0, signals, amps)
+    assert got.device.type == "cuda" and got.shape == want.shape
+    assert float((got.cpu() - want).abs().max()) <= TOL
