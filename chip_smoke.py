@@ -98,13 +98,20 @@ raises and exits non-zero:
    their plain versions on the card, on unit-norm inputs: n = 2, 4, 10, 16, 32,
    48 (the wide paths: two rows per thread in the chain, one lane per block
    in the others), 37 and 1,000 lanes, chains of 1 and 7 steps, expm orders 8
-   and 12 with 0, 1 and 2 squarings. The chain kernel is built without
-   multiply-add contraction and must agree bit for bit; the others within 1e-5.
+   and 12 with 0, 1 and 2 squarings; the expm and its backward also at the
+   unaligned n = 1, 3, 7, 11, 13, 17, 33 on 1, 7 and 33 lanes (ragged lane
+   groups of the lane kernels, n <= 16, and of the tiled ones). The chain
+   kernel is built without multiply-add contraction and must agree bit for
+   bit; the others within 1e-5 (the backward relative to max(max |g|, 1));
+   every case's launch counters must rise.
    Past n = 64, at n = 65 and 100 (a lane's matrices in device memory above
    98), the four ops and the gradients of the ``_ad`` forms, and at n = 65
    ``DysonSolver``/``MagnusSolver.solve_sweep`` of a seeded expansion, run
    the kernels: within float32 roundoff (1e-5) of the CPU's plain versions,
-   each kernel's launch counter rising.
+   each kernel's launch counter rising. At n = 100 over 256 lanes each
+   kernel's time beside its plain version, its bound and the one PyTorch
+   call that computes it (``torch.einsum``, ``torch.linalg.matrix_exp``, and
+   for the backward ``matrix_exp`` of the block ``[[X^H, G], [0, X^H]]``).
 12. the Dyson row of BASELINE config 4 at full width:
    ``dyson_transmon_solver(device="cuda")`` (dim 10, nu = 5, alpha = -0.33,
    r = 0.02, dt = 0.1, Chebyshev order 1, Dyson order 6) through
@@ -121,7 +128,11 @@ raises and exits non-zero:
    must launch once per call over 2,048,000 lanes and the chain kernel after
    it; in the gradient the expm backward kernel must launch 8 times over
    256,000 lanes. ``torch.linalg.matrix_exp`` is timed beside the expm
-   kernel. The batched product's entry point is driven once at full width
+   kernel, and ``matrix_exp`` of the block ``[[X^H, G], [0, X^H]]`` (its
+   upper right block is the VJP of exp) beside the backward; both kernels'
+   launch shapes (lanes per block, threads per lane, blocks, warps resident
+   per SM) and ptxas registers and spills are printed. The batched product's
+   entry point is driven once at full width
    on this row's propagators (consecutive steps composed pairwise, 1,024,000
    lanes) beside ``torch.einsum``.
 
@@ -159,7 +170,9 @@ raises and exits non-zero:
    states at the probes within 1e-8 of phase 12's references; the
    complex128 chain (and for Magnus the complex128 expm) kernels must launch
    once per pass of 1,024 members, and are timed alone beside their plain
-   versions (and ``torch.linalg.matrix_exp``).
+   versions (and ``torch.linalg.matrix_exp``); the complex128 expm's bound
+   on the FP64 FMA pipes, where it runs its products, beside the one on the
+   FP64 tensor cores, and its launch shape.
 18. the fused expm chain (kernel B9) at bench.py's cell: T = 64, b = 8,
    n = m = 256, y0 = I, dt = 0.9, ||G|| = 2 (anti-Hermitian), order 12, 1
    squaring, complex64, through ``benchmarks.expm_chain``: B9 must launch
@@ -250,6 +263,10 @@ PT_KERNEL_TOL = 1e-5  # batched_linalg kernels vs torch.einsum: float32 roundoff
 PT_DIMS = (2, 4, 10, 16, 32, 48)
 PT_BATCHES = (37, 1000)
 PT_EXPM_CASES = ((8, 0), (8, 2), (12, 0), (12, 1), (12, 2))
+# the lane kernels (n <= 16) and the tiled ones above them at unaligned n, on
+# lane counts that split the lane groups (3 lanes per warp at n = 10) raggedly
+PT_LANE_DIMS = (1, 3, 7, 11, 13, 17, 33)
+PT_LANE_BATCHES = (1, 7, 33)
 # past n = 64 the perturbative kernels against the CPU's plain versions:
 # float32 on two devices, each summing in its own order
 PAST_64_TOL = 1e-5
@@ -1143,6 +1160,51 @@ def unitary_stack(gen, T, n, B, dtype=np.complex64):
     return np.ascontiguousarray(np.transpose(u, (0, 2, 3, 1))).astype(dtype)
 
 
+# the instantiation a batched_linalg launch takes, by kind, lane kernel and
+# dtype, as a fragment of its mangled name in the ptxas report
+BL_PTXAS_TAGS = {
+    ("expm", True, False): "16expm_lane_kernelILi{np}EfE",
+    ("expm", True, True): "16expm_lane_kernelILi{np}EdE",
+    ("expm_bwd", True, False): "20expm_bwd_lane_kernelILi{np}EE",
+    ("expm", False, False): "15expm_bol_kernelILi{tile}ELb{wide}EfE",
+    ("expm", False, True): "15expm_bol_kernelILi{tile}ELb{wide}EdE",
+    ("expm_bwd", False, False): "19expm_bwd_bol_kernelILi{tile}ELb{wide}EE",
+    ("matmul", False, False): "17matmul_bol_kernelILi{tile}ELb{wide}EE",
+}
+
+
+def bl_launch(bl, which, n, lanes, double=False):
+    """(shape, text): the launch a batched_linalg kernel takes on ``lanes``
+    lanes of n x n matrices, and a line of its shape, the warps it keeps
+    resident per SM and the registers and spills ptxas reported for that
+    instantiation in the library this run loaded."""
+    shape = bl.launch_shape(which, n, lanes, double=double)
+    report = Path(bl._kernel_lib()._name + ".ptxas.txt")
+    tag = BL_PTXAS_TAGS[(which, shape.lane_kernel, double)].format(
+        np=n + n % 2, tile=5 if n % 5 == 0 else 4, wide=int(shape.wide))
+    ptxas = ptxas_entry(report.read_text() if report.exists() else "", tag)
+    kind = "lane kernel" if shape.lane_kernel else ("wide" if shape.wide else "tiled")
+    return shape, (
+        f"{kind}, {shape.lanes_per_block} lanes per block x {shape.threads_per_lane} threads per "
+        f"lane, {shape.threads} threads, {shape.blocks} blocks, {shape.smem_bytes} B shared, "
+        f"{shape.blocks_per_sm} blocks = {shape.warps_per_sm} warps per SM, ptxas: {ptxas}")
+
+
+def block_expm_vjp(torch, bl, planes):
+    """The one PyTorch call that computes B7's function: the upper right
+    block of ``matrix_exp([[X^H, G], [0, X^H]])`` over the lanes, the
+    Frechet derivative of exp at X^H in the direction G (B7 computes that of
+    the Taylor recursion). The block matrices are made here, outside any
+    timing of the call returned."""
+    n = planes[0].shape[0]
+    xh = bl.from_bol(planes[0], -planes[1]).transpose(1, 2)
+    block = torch.zeros((xh.shape[0], 2 * n, 2 * n), dtype=xh.dtype, device=xh.device)
+    block[:, :n, :n] = block[:, n:, n:] = xh
+    block[:, :n, n:] = bl.from_bol(planes[2], planes[3])
+    del xh
+    return lambda: torch.linalg.matrix_exp(block)[:, :n, n:]
+
+
 def unit_planes(torch, gen, n, B, count=2, dtype=None, device="cuda"):
     """``count`` (n, n, B) planes on ``device``, float32 unless ``dtype``
     says otherwise; each lane's complex matrix has Frobenius norm 1."""
@@ -1157,10 +1219,17 @@ def planes_diff(got, want):
 
 
 def phase_perturbative_kernels(torch, ca, bl):
-    """B5, B10, B6, B7 against their plain versions. Returns the four max diffs."""
+    """B5, B10, B6, B7 against their plain versions, each launch counted.
+    Returns the four max diffs."""
     worst = dict(chain=0.0, matmul=0.0, expm=0.0, expm_bwd=0.0)
+
+    def launches():
+        return (ca.chain_apply_bol.launches, bl.matmul_bol.launches,
+                bl.expm_taylor_bol.launches, bl.expm_taylor_bol_bwd.launches)
+
     for n in PT_DIMS:
         for B in PT_BATCHES:
+            before = launches()
             for T in (1, 7):
                 gen = np.random.default_rng(100 * n + T)
                 props = torch.as_tensor(unitary_stack(gen, T, n, B), device="cuda")
@@ -1188,8 +1257,30 @@ def phase_perturbative_kernels(torch, ca, bl):
                       f"B7 n={n} B={B} order={order} squarings={squarings}: kernel vs plain "
                       f"{diff:.2e} > {PT_KERNEL_TOL}")
                 worst["expm_bwd"] = max(worst["expm_bwd"], diff)
+            torch.cuda.synchronize()
+            rose = tuple(a - b for a, b in zip(launches(), before))
+            cases = len(PT_EXPM_CASES)
+            check(rose == (2, 1, cases, cases), f"n={n} B={B}: kernel launches {rose}")
             log(f"  B5/B10/B6/B7 n={n:2d} B={B:4d}: chain bitwise, matmul {worst['matmul']:.2e}, "
                 f"expm {worst['expm']:.2e}, expm_bwd {worst['expm_bwd']:.2e} (running max)")
+    for n in PT_LANE_DIMS:
+        for B in PT_LANE_BATCHES:
+            planes = unit_planes(torch, np.random.default_rng(500 + n + B), n, B, count=4)
+            before = launches()
+            diff = planes_diff(bl.expm_taylor_bol(*planes[:2], 12, 1),
+                               bl.expm_taylor_bol_plain(*planes[:2], 12, 1))
+            want = bl.expm_taylor_bol_bwd_plain(*planes, 12, 1)
+            bwd = planes_diff(bl.expm_taylor_bol_bwd(*planes, 12, 1), want)
+            scale = max(1.0, max(float(w.abs().max()) for w in want))
+            torch.cuda.synchronize()
+            rose = tuple(a - b for a, b in zip(launches(), before))
+            check(rose == (0, 0, 1, 1), f"n={n} B={B}: kernel launches {rose}")
+            check(diff <= PT_KERNEL_TOL and bwd <= PT_KERNEL_TOL * scale,
+                  f"B6/B7 n={n} B={B}: kernel vs plain {diff:.2e}, {bwd:.2e}")
+            worst["expm"] = max(worst["expm"], diff)
+            worst["expm_bwd"] = max(worst["expm_bwd"], bwd)
+        log(f"  B6/B7 n={n:2d} B in {PT_LANE_BATCHES}: expm {worst['expm']:.2e}, expm_bwd "
+            f"{worst['expm_bwd']:.2e} (running max)")
     return worst
 
 
@@ -1297,6 +1388,20 @@ def perturbative_past_64(torch, ca, bl, Signal, interop):
     }
     times = {name: (cuda_ms(torch, kernel, reps=3), cuda_ms(torch, plain, reps=3))
              for name, (kernel, plain) in cases.items()}
+    # bounds and the one PyTorch call that computes each (made outside the timing)
+    left, right = torch.complex(planes[0], planes[1]), torch.complex(planes[2], planes[3])
+    stack = bl.from_bol(planes[0], planes[1]).contiguous()
+    order, squarings = 12, 1
+    library = {
+        "matmul": (bound(8.0 * n**3 * lanes, 24.0 * n * n * lanes),
+                   lambda: torch.einsum("ikb,kjb->ijb", left, right)),
+        "expm": (bound((order - 1 + squarings) * 8.0 * n**3 * lanes, 16.0 * n * n * lanes),
+                 lambda: torch.linalg.matrix_exp(stack)),
+        "expm_bwd": (bound(3 * (order - 1 + squarings) * 8.0 * n**3 * lanes,
+                           24.0 * n * n * lanes), block_expm_vjp(torch, bl, planes)),
+    }
+    for name, ((bound_ms, bound_by), call) in library.items():
+        times[name] += (bound_ms, bound_by, cuda_ms(torch, call, reps=3))
     return worst, times
 
 
@@ -1484,15 +1589,17 @@ def phase_perturbative_row(torch, phase, name, make_solver, Signal, ca, bl, refs
         library_diff = float((library - bl.from_bol(*expm_out)).abs().max())
         del stack, library
         expm_bound = bound((order - 1 + squarings) * 8.0 * n**3 * lanes, 16.0 * n * n * lanes)
+        expm_shape, expm_shape_text = bl_launch(bl, "expm", n, lanes)
         result["expm"] = dict(
             launches=fwd_counts[1], max_abs_err=expm_diff, ms=expm_ms, plain_ms=expm_plain_ms,
-            bound_ms=expm_bound[0], bound_by=expm_bound[1], library_ms=library_ms)
+            bound_ms=expm_bound[0], bound_by=expm_bound[1], library_ms=library_ms,
+            shape=dataclasses.asdict(expm_shape), warps_per_sm=expm_shape.warps_per_sm)
         kernels_ms += expm_ms
         expm_text = (
             f"expm kernel {expm_ms:.3f} ms over {lanes} lanes (bound {expm_bound[0]:.3f} ms, "
             f"{expm_bound[1]}), plain {expm_plain_ms:.1f} ms, torch.linalg.matrix_exp "
             f"{library_ms:.1f} ms (differs from the kernel by {library_diff:.2e}), kernel vs "
-            f"plain {expm_diff:.2e}; ")
+            f"plain {expm_diff:.2e}, launch: {expm_shape_text}; ")
 
         # the batched product's entry point, driven once at this row's width:
         # consecutive step propagators composed pairwise
@@ -1558,6 +1665,7 @@ def phase_perturbative_row(torch, phase, name, make_solver, Signal, ca, bl, refs
     bwd_text = ""
     if magnus:
         which, planes, order, squarings = bwd_args
+        planes = [p.detach() for p in planes]  # saved for the backward: they require grad
         lanes = planes[0].shape[2]
         check(which == "expm_bwd" and lanes == PT_STEPS * PT_SWEEP // PT_CHUNKS,
               f"the Magnus gradient's last batched_linalg launch was {which} over {lanes} lanes")
@@ -1571,15 +1679,25 @@ def phase_perturbative_row(torch, phase, name, make_solver, Signal, ca, bl, refs
               f"Magnus-row expm backward kernel vs plain {bwd_diff:.2e} (values up to {scale:.2e})")
         bwd_bound = bound((3 * (order - 1) + 3 * squarings) * 8.0 * n**3 * lanes,
                           24.0 * n * n * lanes)
+        bwd_shape, bwd_shape_text = bl_launch(bl, "expm_bwd", n, lanes)
+        del bwd_plain
+        library = block_expm_vjp(torch, bl, planes)  # inputs made outside the timing
+        library()
+        bwd_library_ms, vjp = timed_ms(torch, library)
+        bwd_library_diff = float((vjp - bl.from_bol(*bwd_out)).abs().max())
+        del library, vjp
         result["expm_bwd"] = dict(
             launches=grad_counts[2], max_abs_err=bwd_diff, ms=bwd_ms, plain_ms=bwd_plain_ms,
-            bound_ms=bwd_bound[0], bound_by=bwd_bound[1])
+            bound_ms=bwd_bound[0], bound_by=bwd_bound[1], library_ms=bwd_library_ms,
+            shape=dataclasses.asdict(bwd_shape), warps_per_sm=bwd_shape.warps_per_sm)
         result["expm"]["launches"] += grad_counts[1]
         bwd_text = (
             f"expm backward kernel {bwd_ms:.3f} ms per launch over {lanes} lanes (bound "
-            f"{bwd_bound[0]:.3f} ms, {bwd_bound[1]}), plain {bwd_plain_ms:.1f} ms, kernel vs "
-            f"plain {bwd_diff:.2e}; ")
-        del planes, bwd_args, bwd_out, bwd_plain
+            f"{bwd_bound[0]:.3f} ms, {bwd_bound[1]}), plain {bwd_plain_ms:.1f} ms, "
+            f"matrix_exp of the block [[X^H, G], [0, X^H]] {bwd_library_ms:.1f} ms (differs "
+            f"from the kernel by {bwd_library_diff:.2e}), kernel vs plain {bwd_diff:.2e}, "
+            f"launch: {bwd_shape_text}; ")
+        del planes, bwd_args, bwd_out
     result["chain"]["launches"] += grad_counts[0]
     torch.cuda.empty_cache()
     result.update(sims_per_s=PT_SWEEP / per_call, grad_sims_per_s=PT_SWEEP / grad_call,
@@ -1987,13 +2105,20 @@ def phase_dysolve_df(torch, ca, bl, Signal, make_solver, name, refs, ref_s, devi
         del stack, library, expm_out
         expm_bound = bound_f64((order - 1 + squarings) * 8.0 * n**3 * lanes, 0.0,
                                32.0 * n * n * lanes)
+        # the kernel runs its products on the FP64 FMA pipes, not the tensor cores
+        fma_bound = bound((order - 1 + squarings) * 8.0 * n**3 * lanes, 32.0 * n * n * lanes,
+                          PEAK_F64)
+        shape, shape_text = bl_launch(bl, "expm", n, lanes, double=True)
         result["expm"] = dict(launches=counts[1], max_abs_err=expm_diff, ms=expm_ms,
                               plain_ms=expm_plain_ms, bound_ms=expm_bound[0],
-                              bound_by=expm_bound[1], library_ms=library_ms)
+                              bound_by=expm_bound[1], library_ms=library_ms,
+                              bound_fma_pipes_ms=fma_bound[0], shape=dataclasses.asdict(shape),
+                              warps_per_sm=shape.warps_per_sm)
         text = (f"complex128 expm kernel {expm_ms:.3f} ms over {lanes} lanes per pass (bound "
-                f"{expm_bound[0]:.3f} ms, {expm_bound[1]}), plain {expm_plain_ms:.1f} ms, "
+                f"{expm_bound[0]:.3f} ms on the FP64 tensor cores, {fma_bound[0]:.3f} ms on the "
+                f"FP64 FMA pipes, {expm_bound[1]}), plain {expm_plain_ms:.1f} ms, "
                 f"torch.linalg.matrix_exp {library_ms:.1f} ms (differs by {library_diff:.2e}), "
-                f"kernel vs plain {expm_diff:.2e}; ")
+                f"kernel vs plain {expm_diff:.2e}, launch: {shape_text}; ")
         del planes
     torch.cuda.empty_cache()
     print(
@@ -2367,8 +2492,13 @@ def main() -> int:
           f"four kernels, the _ad gradients; Dyson and Magnus solve_sweep at 65) the kernels vs "
           f"the CPU's plain versions {pt_past:.2e} <= {PAST_64_TOL}; at n = 100 x 256 lanes, "
           f"kernel / plain on the card: " + ", ".join(
-              f"{k} {a:.3f} / {b:.3f} ms" for k, (a, b) in pt_past_ms.items())
-          + f"; in {time.perf_counter() - start:.1f} s", flush=True)
+              f"{k} {v[0]:.3f} / {v[1]:.3f} ms" + (
+                  f" (bound {v[2]:.3f} ms, {v[3]}; library {v[4]:.3f} ms)" if len(v) > 2 else "")
+              for k, v in pt_past_ms.items())
+          + f" (libraries: torch.einsum, torch.linalg.matrix_exp, and matrix_exp of the block "
+          f"[[X^H, G], [0, X^H]]); B6/B7 ragged at n in {PT_LANE_DIMS} x lanes in "
+          f"{PT_LANE_BATCHES}; every launch counted; in {time.perf_counter() - start:.1f} s",
+          flush=True)
 
     # phases 12 and 13: the Dyson and Magnus rows, one set of host references
     pt_amps = np.linspace(0.2, 1.0, PT_SWEEP)[perturbative_probes()]
@@ -2505,7 +2635,6 @@ def main() -> int:
         "source": "qiskit_dynamics_tpu_torch/csrc/batched_linalg.cu",
         "replaces": "qiskit_dynamics_tpu/ops/batched_linalg.py:192",
         **magnus["expm_bwd"],
-        "library_ms": None,
     }, {
         "name": "matmul_bol",
         "route": "cuda",

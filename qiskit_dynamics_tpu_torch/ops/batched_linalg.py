@@ -8,16 +8,18 @@ the sweep batch minor, so neighbouring threads read neighbouring addresses.
 - :func:`matmul_bol`: ``C_b = A_b @ B_b``.
 - :func:`expm_taylor_bol`: fixed-order Horner Taylor ``expm`` with static
   scaling and squaring.
-- :func:`expm_taylor_bol_bwd`: its vector-Jacobian product. It recomputes the
-  forward recursion, keeps every stage operand, and runs the reverse sweep
-  with ``A @ B``, ``A^H @ B`` and ``A @ B^H`` products.
+- :func:`expm_taylor_bol_bwd`: its vector-Jacobian product. The recursion is
+  a polynomial in X with real coefficients, so the VJP with cotangent G is
+  its Frechet derivative at ``X^H`` in the direction G: the same recursion
+  run forward on a pair ``(t, dt)``, with nothing stored for a reverse pass.
 - :func:`expm_taylor_bol_ad`: ``expm_taylor_bol`` with gradients, kernel
   forward and kernel backward.
 
 For CUDA tensors (float32; float64 too for :func:`expm_taylor_bol`, the
 per-step ``expm`` of the FP64 Magnus Dysolve; n up to ``MAX_N``) the three
-functions launch the three ``__global__`` entry points of
-``csrc/batched_linalg.cu``, which share one complex product routine; for CPU
+functions launch the kernels of ``csrc/batched_linalg.cu`` (up to n = 16 the
+expm and its backward give a thread one column of a lane's matrix; above, a
+thread owns a tile and the three share one product routine); for CPU
 tensors they run the plain versions
 (:func:`matmul_bol_plain`, :func:`expm_taylor_bol_plain`,
 :func:`expm_taylor_bol_bwd_plain`) in the dtype they are given. The kernels
@@ -29,11 +31,13 @@ complex tensor (element stride 2): the kernels take either without a copy,
 and return the ``real``/``imag`` views of one complex64 (complex128) tensor.
 
 Not carried from the JAX package: ``tile_b`` (the kernels mask their own
-last block, so callers pad nothing) and ``interpret``.
+last block, so callers pad nothing) and ``interpret``. :func:`launch_shape`
+reports the launch a kernel takes on the card.
 """
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
@@ -45,6 +49,7 @@ __all__ = [
     "expm_taylor_bol_ad",
     "expm_taylor_bol_bwd",
     "expm_taylor_bol_bwd_plain",
+    "launch_shape",
     "to_bol",
     "from_bol",
 ]
@@ -156,11 +161,50 @@ def _kernel_lib():
     lib.expm_bwd_bol_launch.argtypes = [pointer] * 7 + [integer] * 6 + [pointer]
     lib.batched_linalg_work_bytes.argtypes = [integer] * 6
     lib.batched_linalg_work_bytes.restype = ctypes.c_longlong
+    lib.batched_linalg_shape.argtypes = [integer] * 4 + [pointer]
+    lib.batched_linalg_shape.restype = integer
     for fn in (lib.matmul_bol_launch, lib.expm_bol_launch, lib.expm_bwd_bol_launch):
         fn.restype = integer
     lib.batched_linalg_error_string.argtypes = [integer]
     lib.batched_linalg_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@dataclass(frozen=True)
+class LaunchShape:
+    """The launch of one kernel: lanes per block, threads per lane, threads
+    and blocks, dynamic shared bytes, whether it takes a lane kernel (n <= 16:
+    a thread per column, a lane's threads in one warp), whether a lane's
+    matrices sit in device memory, whether threads loop over tiles (wide),
+    and the blocks the card keeps resident on one SM."""
+
+    lanes_per_block: int
+    threads_per_lane: int
+    threads: int
+    blocks: int
+    smem_bytes: int
+    lane_kernel: bool
+    in_device: bool
+    wide: bool
+    blocks_per_sm: int
+
+    @property
+    def warps_per_sm(self) -> int:
+        return self.blocks_per_sm * -(-self.threads // 32)
+
+
+def launch_shape(which: str, n: int, lanes: int, double: bool = False) -> LaunchShape:
+    """The launch ``which`` ("matmul", "expm" or "expm_bwd") takes on the
+    current CUDA device for ``lanes`` lanes of n x n matrices (``double``:
+    the complex128 expm). Needs the card: it builds and asks the library."""
+    lib = _kernel_lib()
+    out = (ctypes.c_longlong * 9)()
+    code = lib.batched_linalg_shape(_KINDS[which], n, lanes, int(double), out)
+    if code != 0:
+        raise ValueError(f"the CUDA batched_linalg {which} kernel refuses n={n}, "
+                         f"{lanes} lanes: {lib.batched_linalg_error_string(code).decode()}")
+    v = list(out)
+    return LaunchShape(*v[:5], *(bool(x) for x in v[5:8]), v[8])
 
 
 def _element_stride(plane) -> int:
@@ -205,8 +249,8 @@ def _launch_kernel(which: str, planes, order: int = 0, squarings: int = 0):
     lib = _kernel_lib()
     with torch.cuda.device(first.device):
         stream = torch.cuda.current_stream(first.device).cuda_stream
-        # the device work buffer: the backward's stage operands, and every
-        # kernel's working matrices where they do not fit shared memory
+        # the device work buffer: the working matrices where they do not fit
+        # shared memory (none for the lane kernels)
         nbytes = int(lib.batched_linalg_work_bytes(_KINDS[which], n, B, order, squarings,
                                                    int(double)))
         if nbytes < 0:
@@ -263,13 +307,26 @@ def expm_taylor_bol_plain(Xr, Xi, order: int = 8, squarings: int = 0):
 
 
 def expm_taylor_bol_bwd_plain(Xr, Xi, CTr, CTi, order: int = 8, squarings: int = 0):
-    """Plain version of :func:`expm_taylor_bol_bwd`: autograd through
-    :func:`expm_taylor_bol_plain` at the same inputs."""
-    with torch.enable_grad():
-        xr = Xr.detach().requires_grad_(True)
-        xi = Xi.detach().requires_grad_(True)
-        outs = expm_taylor_bol_plain(xr, xi, order, squarings)
-        return torch.autograd.grad(outs, (xr, xi), (CTr, CTi))
+    """Plain version of :func:`expm_taylor_bol_bwd`, the kernels' arithmetic
+    in eager torch: the Frechet derivative of the recursion at ``X^H`` in the
+    direction ``G = CTr + i CTi``, run forward on the pair ``(t, dt)`` with
+    the scale ``2^-squarings`` kept in the coefficients: ``t = I + c X^H``,
+    ``dt = c G`` with ``c = 2^-q / order``; per Horner stage
+    ``(t, dt) <- (I + c X^H t, c (G t + X^H dt))`` with ``c = 2^-q / k``; per
+    squaring ``(t, dt) <- (t t, t dt + dt t)``. Returns ``(Re dt, Im dt)``."""
+    n = Xr.shape[0]
+    scale = 1.0 / (2.0**squarings)
+    xh = torch.complex(Xr, -Xi).transpose(0, 1)
+    g = torch.complex(CTr, CTi)
+    eye = torch.eye(n, dtype=xh.dtype, device=xh.device)[:, :, None]
+    t = xh * (scale / order) + eye
+    dt = g * (scale / order)
+    for k in range(order - 1, 0, -1):
+        c = scale / k
+        t, dt = _cmm(xh, t) * c + eye, (_cmm(g, t) + _cmm(xh, dt)) * c
+    for _ in range(squarings):
+        t, dt = _cmm(t, t), _cmm(t, dt) + _cmm(dt, t)
+    return torch.real(dt), torch.imag(dt)
 
 
 # --------------------------------------------------------------------------

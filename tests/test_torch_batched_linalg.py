@@ -16,7 +16,11 @@ Tolerances and their reasons:
 - ``expm`` against ``scipy.linalg.expm``: 1e-9 at order 12 with one squaring on
   matrices of norm 0.5 (Taylor truncation ~1e-14), 1e-5 at order 8 unscaled;
 - gradients of the two ``_ad`` functions: 1e-10 against ``jax.grad`` of the JAX
-  ``_ad`` functions, 1e-6 relative against central differences (step 1e-6).
+  ``_ad`` functions, 1e-6 relative against central differences (step 1e-6);
+- the backward's plain version (the tangent recursion at ``X^H``) against
+  autograd through the forward recursion in complex128: 1e-12 relative to
+  max |g| (the same polynomial differentiated two ways; float64 roundoff of
+  up to 3 x 15 products).
 
 Distinct Pallas interpret configurations here: chain (1), matmul (1), expm (2),
 expm backward (1), plus the two ``jax.grad`` traces.
@@ -228,6 +232,28 @@ def test_expm_bwd_plain_matches_twin_other_orders(order, squarings):
     out = bl.expm_taylor_bol_bwd(*tensors(args), order=order, squarings=squarings)
     for got, want in zip(out, twin):
         assert_rel_close(got, to_np(want), 1e-10)
+
+
+def autograd_expm_vjp(Xr, Xi, CTr, CTi, order, squarings):
+    """The VJP of ``expm_taylor_bol_plain`` by autograd through its recursion:
+    the reference the tangent recursion is held to."""
+    xr = Xr.detach().clone().requires_grad_(True)
+    xi = Xi.detach().clone().requires_grad_(True)
+    outs = bl.expm_taylor_bol_plain(xr, xi, order, squarings)
+    return torch.autograd.grad(outs, (xr, xi), (CTr, CTi))
+
+
+@pytest.mark.parametrize("order, squarings", [(1, 0), (6, 1), (12, 1), (12, 3)])
+@pytest.mark.parametrize("n", [1, 2, 5, 10, 13])
+def test_expm_bwd_plain_is_the_autograd_vjp(n, order, squarings):
+    gen = rng(1000 + 10 * n + order + squarings)
+    args = [torch.as_tensor(gen.normal(size=(n, n, 3))) for _ in range(4)]
+    got = bl.expm_taylor_bol_bwd_plain(*args, order, squarings)
+    want = autograd_expm_vjp(*args, order, squarings)
+    scale = max(float(w.abs().max()) for w in want)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float64
+        assert float((g - w).abs().max()) <= 1e-12 * scale
 
 
 def test_expm_ad_matches_jax_grad_and_fd():

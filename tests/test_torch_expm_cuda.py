@@ -37,7 +37,7 @@ B9_TOL = {torch.complex64: 2e-5, torch.complex128: 1e-12}
 # past 32 (a runtime n); 97: the last in shared memory for the product and the
 # expm, ragged tiles; 129: every lane's matrices in device memory, more tiles
 # than a block's threads
-WIDE_DIMS = (48, 64, 65, 97, 129)
+WIDE_DIMS = (48, 64, 65, 97, 100, 129)
 
 
 @pytest.fixture
@@ -127,6 +127,8 @@ def test_wide_chain_kernel_bitwise(cuda, n, dtype):
 
 @pytest.mark.parametrize("n", WIDE_DIMS)
 def test_wide_batched_linalg_kernels(cuda, n):
+    before = (bl.matmul_bol.launches, bl.expm_taylor_bol.launches,
+              bl.expm_taylor_bol_bwd.launches)
     planes = unit_planes(np.random.default_rng(n), n, 37, cuda, count=4)
     assert max_diff(bl.matmul_bol(*planes), bl.matmul_bol_plain(*planes)) <= 1e-5
     for order, squarings in ((8, 0), (12, 1)):
@@ -138,6 +140,10 @@ def test_wide_batched_linalg_kernels(cuda, n):
     planes64 = unit_planes(np.random.default_rng(n), n, 37, cuda, dtype=torch.float64)
     got = bl.expm_taylor_bol(*planes64, 12, 1)
     assert max_diff(got, bl.expm_taylor_bol_plain(*planes64, 12, 1)) <= 1e-12
+    torch.cuda.synchronize()
+    # one product, three expms (two float32, one float64), two backward passes
+    assert (bl.matmul_bol.launches, bl.expm_taylor_bol.launches,
+            bl.expm_taylor_bol_bwd.launches) == (before[0] + 1, before[1] + 3, before[2] + 2)
 
 
 def test_wide_caps_raise_above_64(cuda):

@@ -42,13 +42,13 @@ def unitary_stack(gen, T, n, B):
     return np.ascontiguousarray(np.transpose(u, (0, 2, 3, 1))).astype(np.complex64)
 
 
-def unit_planes(gen, n, B, device, count=2, scale=1.0):
-    """``count`` float32 (n, n, B) planes; each lane's complex matrix has
-    Frobenius norm ``scale``."""
+def unit_planes(gen, n, B, device, count=2, scale=1.0, dtype=torch.float32):
+    """``count`` (n, n, B) planes, float32 unless ``dtype`` says otherwise;
+    each lane's complex matrix has Frobenius norm ``scale``."""
     x = gen.normal(size=(count, n, n, B))
     pairs = x.reshape(count // 2, 2, n, n, B)
     pairs = scale * pairs / np.sqrt((pairs**2).sum(axis=(1, 2, 3), keepdims=True))
-    return [torch.as_tensor(p, device=device).float() for p in pairs.reshape(count, n, n, B)]
+    return [torch.as_tensor(p, device=device).to(dtype) for p in pairs.reshape(count, n, n, B)]
 
 
 def max_diff(got, want):
@@ -151,6 +151,83 @@ def test_expm_bwd_kernel_matches_plain(cuda, n, B, order, squarings):
     torch.cuda.synchronize()
     assert bl.expm_taylor_bol_bwd.launches == before + 1
     assert max_diff(out, plain) <= TOL
+
+
+# the lane kernels (n <= 16) and the tiled ones above them, at unaligned n and
+# lane counts that split the lane groups (3 lanes per warp at n = 10) raggedly
+LANE_DIMS = (1, 3, 7, 10, 11, 13, 16, 17, 33, 64)
+LANE_BATCHES = (1, 7, 33, 1000)
+
+
+def bwd_scale(want):
+    return max(1.0, max(float(w.abs().max()) for w in want))
+
+
+@pytest.mark.parametrize("B", LANE_BATCHES)
+@pytest.mark.parametrize("n", LANE_DIMS)
+def test_expm_kernels_ragged_lanes(cuda, n, B):
+    planes = unit_planes(np.random.default_rng(1000 + n + B), n, B, cuda, count=4)
+    before = (bl.expm_taylor_bol.launches, bl.expm_taylor_bol_bwd.launches)
+    for order, squarings in ((12, 1), (5, 0), (1, 3)):
+        out = bl.expm_taylor_bol(*planes[:2], order, squarings)
+        assert max_diff(out, bl.expm_taylor_bol_plain(*planes[:2], order, squarings)) <= TOL
+        out = bl.expm_taylor_bol_bwd(*planes, order, squarings)
+        want = bl.expm_taylor_bol_bwd_plain(*planes, order, squarings)
+        assert out[0].shape == (n, n, B)
+        assert max_diff(out, want) <= TOL * bwd_scale(want)
+    torch.cuda.synchronize()
+    assert (bl.expm_taylor_bol.launches, bl.expm_taylor_bol_bwd.launches) == (
+        before[0] + 3, before[1] + 3)
+
+
+@pytest.mark.parametrize("B", LANE_BATCHES)
+@pytest.mark.parametrize("n", LANE_DIMS)
+def test_expm_kernel_complex128(cuda, n, B):
+    planes = unit_planes(np.random.default_rng(2000 + n + B), n, B, cuda, dtype=torch.float64)
+    before = bl.expm_taylor_bol.launches
+    out = bl.expm_taylor_bol(*planes, 12, 1)
+    torch.cuda.synchronize()
+    assert bl.expm_taylor_bol.launches == before + 1
+    assert out[0].dtype == torch.float64
+    assert max_diff(out, bl.expm_taylor_bol_plain(*planes, 12, 1)) <= 1e-12
+
+
+@pytest.mark.parametrize("n", [3, 10, 17, 65])
+def test_expm_bwd_kernel_is_the_autograd_vjp(cuda, n):
+    """B7 against autograd through the forward recursion (on the card, in
+    float32): the VJP the tangent recursion stands for."""
+    planes = unit_planes(np.random.default_rng(3000 + n), n, 33, cuda, count=4)
+    xr, xi = [p.clone().requires_grad_(True) for p in planes[:2]]
+    outs = bl.expm_taylor_bol_plain(xr, xi, 12, 1)
+    want = torch.autograd.grad(outs, (xr, xi), tuple(planes[2:]))
+    got = bl.expm_taylor_bol_bwd(*planes, 12, 1)
+    assert max_diff(got, want) <= TOL * bwd_scale(want)
+
+
+def test_expm_bwd_needs_no_work_buffer(cuda):
+    """No tape: the backward asks for device memory only where its six
+    working matrices pass a block's shared memory (n > 69)."""
+    lib = bl._kernel_lib()
+    assert lib.batched_linalg_work_bytes(2, 10, 256000, 12, 1, 0) == 0
+    for n in (1, 16, 17, 64, 69):
+        assert lib.batched_linalg_work_bytes(2, n, 1000, 12, 1, 0) == 0
+    assert lib.batched_linalg_work_bytes(2, 70, 1000, 12, 1, 0) > 0
+
+
+def test_launch_shapes(cuda):
+    expm = bl.launch_shape("expm", 10, 2_048_000)
+    # rounds of 8 warps x 3 lanes
+    assert expm.lane_kernel and expm.threads_per_lane == 10 and expm.lanes_per_block % 24 == 0
+    assert expm.blocks == -(-2_048_000 // expm.lanes_per_block) and expm.warps_per_sm >= 16
+    bwd = bl.launch_shape("expm_bwd", 10, 256_000)
+    assert bwd.lane_kernel and bwd.lanes_per_block % 24 == 0 and bwd.warps_per_sm >= 8
+    assert bl.launch_shape("expm", 10, 1_024_000, double=True).lane_kernel
+    assert not bl.launch_shape("expm", 17, 100).lane_kernel
+    assert not bl.launch_shape("matmul", 10, 100).lane_kernel
+    wide = bl.launch_shape("expm_bwd", 100, 256)
+    assert wide.in_device and wide.wide and not wide.lane_kernel
+    with pytest.raises(ValueError, match="refuses"):
+        bl.launch_shape("expm", bl.MAX_N + 1, 8)
 
 
 def test_kernels_read_complex_views_in_place(cuda):
