@@ -43,8 +43,11 @@ raises and exits non-zero:
 5. the fixed-step kernel against its plain version on the card, in every
    mode (matrix, matrix_herm, matvec) at n = 4, 9, 16, 25, with padded lanes
    and a ragged last block, plus a trajectory (eval_slots) case: states
-   within 1e-5 (norm-1 states; the plain version repeats the kernel's
-   float operations in order, so they are expected to agree bit for bit).
+   within 1e-5 (norm-1 states; the kernel fuses multiply-adds, so the two
+   agree to float32 roundoff; bit-for-bit equality is reported, not
+   required); the kernel's launch at each n (lanes per member, members per
+   warp, warps per block, warps resident per SM, registers) and its ptxas
+   line. Phases 6 and 7 print the launch of their row too.
 6. the CR sweep gradient at full width: ``cr_solver(device="cuda")``
    (n = 16) through ``Solver.solve_sweep(method="fused_magnus2")`` over
    10,000 amplitudes, T = 100, max_dt = 0.5 (200 steps), loss
@@ -558,6 +561,26 @@ def b2_bound(inputs):
     return bound(flops, nbytes)
 
 
+def b2_launch(ssw, inputs, warps=None):
+    """(shape, text): the launch B2 takes for ``inputs`` (``warps`` per
+    block, by default the wrapper's) and a line of its shape, the warps it
+    keeps resident per SM, its registers and local bytes, and the ptxas line
+    of that instantiation in the library this run loaded."""
+    shape = ssw.launch_shape(inputs.n, inputs.k, inputs.mode, inputs.batch, warps=warps)
+    report = Path(ssw._kernel_lib()._name + ".ptxas.txt")
+    if inputs.mode == "matvec" and shape.columns > 16:
+        tag = f"sweep_magnus2_wide_matvecILi{shape.columns}E"
+    else:
+        tag = f"sweep_magnus2_kernelILi{shape.columns}ELb{int(inputs.mode == 'matvec')}E"
+    ptxas = ptxas_entry(report.read_text() if report.exists() else "", tag)
+    return shape, (
+        f"{shape.columns} columns, {shape.lanes_per_member} lanes per member, "
+        f"{shape.members_per_warp} members per warp, {shape.warps_per_block} warps per block, "
+        f"{shape.blocks} blocks, {shape.smem_bytes} B shared, {shape.blocks_per_sm} blocks = "
+        f"{shape.warps_per_sm} warps per SM, {shape.registers} registers, {shape.local_bytes} B "
+        f"local; ptxas: {ptxas}")
+
+
 class Capture:
     """Keeps the arguments of the last kernel launch a wrapper module made on
     one path (only the last: a Horner launch's planes are a gigabyte)."""
@@ -582,11 +605,13 @@ class Capture:
 # --------------------------------------------------------------------------
 def phase_b2_modes(torch, ssw, expand_lanes):
     """Kernel against plain version in every mode at every n, padded lanes,
-    a ragged last block and a trajectory case. Returns (max diff, all bitwise)."""
+    a ragged last block and a trajectory case. Returns (max diff, all
+    bitwise, the launch of each n in ``matrix_herm``). Bit-for-bit equality
+    is reported, not required: the kernel fuses multiply-adds."""
     cuda = torch.device("cuda")
     T, dt, t0 = 20, 0.05, 0.3
     members, tile_b = 990, 40  # 990 members pad to 1,000 lanes: a ragged last block
-    worst, bitwise = 0.0, True
+    worst, bitwise, launches = 0.0, True, []
     for n in B2_DIMS:
         static, ops, omega, _ = kernel_problem(n, seed=200 + n)
         gen = np.random.default_rng(300 + n)
@@ -612,7 +637,10 @@ def phase_b2_modes(torch, ssw, expand_lanes):
                 bitwise = bitwise and bool(torch.equal(got, want))
                 worst = max(worst, diff)
             log(f"  B2 n={n:2d} {mode:11s} {'traj' if eval_slots else '    '} diff {diff:.2e}")
-    return worst, bitwise
+            if mode == "matrix_herm":
+                _, text = b2_launch(ssw, ssw.prepare_inputs(*args, **kwargs))
+                launches.append(f"n={n}: {text}")
+    return worst, bitwise, launches
 
 
 # --------------------------------------------------------------------------
@@ -713,6 +741,7 @@ def phase_grad(torch, ssw, Signal, cr_solver):
     check(diff <= B2_TOL, f"gradient-path kernel vs plain {diff:.2e} > {B2_TOL}")
     eager_ms = eager_engine_ms(torch, inputs)
     bound_ms, bound_by = b2_bound(inputs)
+    _, launch_text = b2_launch(ssw, inputs)
     print(
         f"phase 6 CR gradient: n={dim}, {GRAD_SWEEP} members, {n_steps} steps (T={T_MAIN}, "
         f"max_dt={GRAD_MAX_DT}), mode {inputs.mode}, {inputs.batch} lanes: forward "
@@ -723,7 +752,7 @@ def phase_grad(torch, ssw, Signal, cr_solver):
         f"{diff:.2e}{' (bitwise)' if diff == 0.0 else ''}; probes vs complex128 engine: "
         f"states {fwd_err:.2e} (<= {FWD_TOL}), gradient {grad_err:.2e} of max |g| "
         f"(<= {GRAD_TOL}); population error vs DOP853(1e-8), not gated: {pop_err:.2e}; "
-        f"launches {launches}",
+        f"launches {launches}; launch: {launch_text}",
         flush=True,
     )
     return dict(launches=launches, max_abs_err=diff, ms=kernel_ms, plain_ms=plain_ms,
@@ -811,6 +840,7 @@ def phase_lindblad(torch, ssw, Signal, Solver):
     check(diff <= B2_TOL, f"Lindblad kernel vs plain {diff:.2e} > {B2_TOL}")
     eager_ms = eager_engine_ms(torch, inputs)
     bound_ms, bound_by = b2_bound(inputs)
+    _, launch_text = b2_launch(ssw, inputs)
     print(
         f"phase 7 Lindblad config 3: solve_dim 4, {LIND_SWEEP} members, {inputs.steps} steps "
         f"(T={LIND_T}, max_dt={LIND_MAX_DT}), mode {inputs.mode}: {LIND_SWEEP / per_call:.1f} "
@@ -819,7 +849,7 @@ def phase_lindblad(torch, ssw, Signal, Solver):
         f"eager engine {eager_ms:.2f} ms; kernel vs plain {diff:.2e}"
         f"{' (bitwise)' if diff == 0.0 else ''}; max error {err:.2e} (<= {LIND_TOL}, "
         f"{len(probes)} probes vs DOP853 1e-10 at {dop853_s:.2f} s/sim); max |trace - 1| "
-        f"{trace_dev:.2e}; launches {launches}",
+        f"{trace_dev:.2e}; launches {launches}; launch: {launch_text}",
         flush=True,
     )
     return dict(launches=launches, max_abs_err=diff, ms=kernel_ms, plain_ms=plain_ms,
@@ -2445,9 +2475,10 @@ def main() -> int:
 
     # phase 5: fixed-step kernel against its plain version
     start = time.perf_counter()
-    b2_diff, b2_bitwise = phase_b2_modes(torch, ssw, _expand_lanes)
+    b2_diff, b2_bitwise, b2_launches = phase_b2_modes(torch, ssw, _expand_lanes)
     print(f"phase 5 sweep_magnus2 vs plain: {len(B2_MODES)} modes + trajectory x n in "
-          f"{B2_DIMS} agree (max diff {b2_diff:.2e} <= {B2_TOL}, bitwise: {b2_bitwise}) in "
+          f"{B2_DIMS} agree (max diff {b2_diff:.2e} <= {B2_TOL}; bitwise, not required: "
+          f"{b2_bitwise}); launches (matrix_herm): {' | '.join(b2_launches)}; in "
           f"{time.perf_counter() - start:.1f} s", flush=True)
 
     # phase 6: the CR sweep gradient; phase 7: Lindblad config 3

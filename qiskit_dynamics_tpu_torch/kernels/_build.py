@@ -33,11 +33,11 @@ NVCC_FLAGS = (
 # rounded operations as its plain version, and the chip check holds the two
 # together bit for bit. chain_apply is among them because it is bound by
 # bytes, so the extra instructions cost nothing, and 1,000 chained products
-# feed a 1e-5 bar. The others (member_sweep, horner_apply, batched_linalg,
-# df_magnus_sweep, expm_chain) are bound by operations: they fuse multiply-adds
-# and agree with their plain versions to roundoff (1e-5 on unit-norm inputs in
-# float32).
-NO_FMAD = frozenset({"adaptive_sweep", "sweep_magnus2", "chain_apply"})
+# feed a 1e-5 bar. The others (sweep_magnus2, member_sweep, horner_apply,
+# batched_linalg, df_magnus_sweep, expm_chain) are bound by operations: they
+# fuse multiply-adds and agree with their plain versions to roundoff (1e-5 on
+# unit-norm inputs in float32).
+NO_FMAD = frozenset({"adaptive_sweep", "chain_apply"})
 
 
 def _flags(name: str, defines=()):

@@ -11,11 +11,16 @@ never formed.
 
 Two implementations of the same arithmetic:
 
-- ``csrc/sweep_magnus2.cu``: the kernel for Hopper, float32 state, float64
-  frame phases.
+- ``csrc/sweep_magnus2.cu``: the kernel for Hopper, float32, a member per
+  lane group of one warp with register-blocked products and fused
+  multiply-adds.
 - :func:`sweep_expm_magnus2_plain`: eager PyTorch on any device, batched over
   members, in the real dtype it is given (float32 like the kernel, or
-  float64). It performs the kernel's float operations in the kernel's order.
+  float64). It performs the same float operations one at a time, so it
+  agrees with the kernel to float32 roundoff, not bit for bit.
+
+Both read the frame phases from one table, :func:`phase_table`, formed once
+per call on the device from float64 times and frequencies.
 
 :func:`sweep_expm_magnus2` runs the kernel for CUDA tensors (and raises if it
 cannot) and the plain version for CPU tensors.
@@ -23,6 +28,7 @@ cannot) and the plain version for CPU tensors.
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -31,7 +37,7 @@ import torch
 
 from ..unified import default_device, to_tensor
 
-__all__ = ["sweep_expm_magnus2", "sweep_expm_magnus2_plain", "prepare_inputs"]
+__all__ = ["sweep_expm_magnus2", "sweep_expm_magnus2_plain", "prepare_inputs", "phase_table"]
 
 _GAUSS_C1 = 0.5 - np.sqrt(3) / 6
 _GAUSS_C2 = 0.5 + np.sqrt(3) / 6
@@ -96,13 +102,15 @@ def select_mode(mode: str, n: int, order: int, hermitian: bool) -> str:
 
 @dataclass
 class SweepInputs:
-    """Kernel-ready inputs: real/imag planes in one real dtype, float64 phases."""
+    """Kernel-ready inputs: real/imag planes in one real dtype, the frame
+    phases as a :func:`phase_table` in that dtype."""
 
     statr: torch.Tensor  # (n, n)
     stati: torch.Tensor
     opsr: torch.Tensor  # (k, n, n)
     opsi: torch.Tensor
     omega: torch.Tensor  # (n, n) float64
+    phases: torch.Tensor  # (T, 2, columns(n) / 2, n, 4), see phase_table
     coef: torch.Tensor  # (T, 2, k, B)
     y0r: torch.Tensor  # (n, B)
     y0i: torch.Tensor
@@ -173,12 +181,48 @@ def prepare_inputs(
     if eval_slots is not None:
         n_eval = _validate_eval_slots(eval_slots, T)
         slots = torch.as_tensor(np.asarray(eval_slots, dtype=np.int32), device=device)
+    omega = to_tensor(frame_omega, dtype=torch.float64, device=device).reshape(n, n).contiguous()
     return SweepInputs(
-        statr=statr, stati=stati, opsr=opsr, opsi=opsi,
-        omega=to_tensor(frame_omega, dtype=torch.float64, device=device).reshape(n, n).contiguous(),
-        coef=coef, y0r=y0r, y0i=y0i, slots=slots, n_eval=n_eval, dt=float(dt), t0=float(t0),
-        order=int(order), mode=select_mode(mode, n, int(order), hermitian),
+        statr=statr, stati=stati, opsr=opsr, opsi=opsi, omega=omega,
+        phases=phase_table(omega, float(t0), float(dt), T, real), coef=coef, y0r=y0r, y0i=y0i,
+        slots=slots, n_eval=n_eval, dt=float(dt), t0=float(t0), order=int(order),
+        mode=select_mode(mode, n, int(order), hermitian),
     )
+
+
+def columns(n: int) -> int:
+    """The kernel's padded state dimension: n rounded up to a multiple of 4."""
+    return max(4, -(-n // 4) * 4)
+
+
+def phase_table(omega: torch.Tensor, t0: float, dt: float, steps: int,
+                dtype: torch.dtype) -> torch.Tensor:
+    """The frame phases of every step at both Gauss points, formed once per call.
+
+    ``cos`` and ``sin`` of ``fmod(omega * tau, 2 pi)`` with
+    ``tau = t0 + (s + c_g) dt``, computed in float64 and rounded to
+    ``dtype``, laid out ``(T, 2, columns(n) / 2, n, 4)``: for each pair of
+    columns ``(2p, 2p + 1)`` the rows are contiguous, each holding
+    ``(cos, sin)`` of both columns (zero past column n). The kernel reads a
+    row's pair with one 16-byte load; :func:`phase_matrices` gives the plain
+    version the same values as (T, 2, n, n) matrices.
+    """
+    n = omega.shape[0]
+    f64 = dict(dtype=torch.float64, device=omega.device)
+    gauss = torch.tensor([_GAUSS_C1, _GAUSS_C2], **f64)
+    tau = t0 + (torch.arange(steps, **f64)[:, None] + gauss) * dt  # (T, 2)
+    ph = torch.fmod(omega * tau[:, :, None, None], _TWO_PI)  # (T, 2, n, n)
+    table = torch.zeros((steps, 2, n, columns(n), 2), dtype=dtype, device=omega.device)
+    table[:, :, :, :n, 0] = torch.cos(ph)
+    table[:, :, :, :n, 1] = torch.sin(ph)
+    return table.reshape(steps, 2, n, -1, 4).transpose(2, 3).contiguous()
+
+
+def phase_matrices(table: torch.Tensor, n: int):
+    """``(cos, sin)``, each (T, 2, n, n), from a :func:`phase_table`."""
+    steps = table.shape[0]
+    t = table.transpose(2, 3).reshape(steps, 2, n, -1, 2)[:, :, :, :n]
+    return t[..., 0], t[..., 1]
 
 
 def sweep_expm_magnus2(
@@ -240,47 +284,115 @@ sweep_expm_magnus2.launches = 0
 # CUDA kernel launch
 # ---------------------------------------------------------------------------
 _PTR = ctypes.c_void_p
-_ARGTYPES = (
-    [_PTR] * 13 + [ctypes.c_int] * 7 + [ctypes.c_double] * 2 + [ctypes.c_float] * 2 + [_PTR]
-)
+_ARGTYPES = [_PTR] * 13 + [ctypes.c_int] * 7 + [ctypes.c_float] * 2 + [_PTR]
 
 
-def _kernel_lib():
+def _kernel_lib(defines: tuple = ()):
+    """The kernel library (``defines`` build a variant of the same source for
+    experiments; the package passes none)."""
     from ..kernels import _build
 
-    lib = _build.load("sweep_magnus2")
+    lib = _build.load("sweep_magnus2", defines)
     lib.sweep_magnus2_launch.argtypes = _ARGTYPES
     lib.sweep_magnus2_launch.restype = ctypes.c_int
     lib.sweep_magnus2_smem_bytes.argtypes = [ctypes.c_int] * 4
     lib.sweep_magnus2_smem_bytes.restype = ctypes.c_size_t
+    lib.sweep_magnus2_shape.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong)]
+    lib.sweep_magnus2_shape.restype = ctypes.c_int
     lib.sweep_magnus2_error_string.argtypes = [ctypes.c_int]
     lib.sweep_magnus2_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def members_per_block(lib, n: int, k: int, mode_id: int) -> int:
-    """Members per block: the power of two up to 32 that keeps the most warps
-    resident per SM (228 KB of shared memory, 2,048 threads, 32 blocks per
-    SM), the larger on a tie."""
-    best, best_warps = 0, -1
-    mb = 32
-    while mb >= 1:
-        threads = n * mb
-        smem = lib.sweep_magnus2_smem_bytes(n, k, mb, mode_id)
-        if threads <= 1024 and smem <= MAX_SHARED_BYTES:
-            blocks = min(233472 // (smem + 1024), 2048 // threads, 32)
-            warps = blocks * ((threads + 31) // 32)
-            if warps > best_warps:
-                best, best_warps = mb, warps
-        mb //= 2
+MAX_WARPS_PER_BLOCK = 8
+# warps resident per SM past which a wave's time grows with its warps (FP32
+# issue and shared loads saturate; the CR shape's block sizes on the card)
+SATURATING_WARPS = 16
+
+
+@dataclass(frozen=True)
+class LaunchShape:
+    """The kernel's launch for one sweep: the padded state dimension, lanes
+    per member, members per warp, warps per block, blocks, shared bytes per
+    block, the blocks the card keeps resident on one SM, and the compiler's
+    registers and local (spilled) bytes per thread."""
+
+    columns: int
+    lanes_per_member: int
+    members_per_warp: int
+    warps_per_block: int
+    blocks: int
+    smem_bytes: int
+    blocks_per_sm: int
+    registers: int
+    local_bytes: int
+
+    @property
+    def warps_per_sm(self) -> int:
+        return self.blocks_per_sm * self.warps_per_block
+
+
+def _shape(lib, n: int, k: int, mode_id: int, batch: int, warps: int) -> LaunchShape:
+    out = (ctypes.c_longlong * 9)()
+    code = lib.sweep_magnus2_shape(n, k, mode_id, batch, warps, out)
+    if code != 0:
+        raise ValueError(f"the sweep_magnus2 kernel refuses n={n}, k={k}, {warps} warps: "
+                         f"{lib.sweep_magnus2_error_string(code).decode()}")
+    return LaunchShape(*list(out))
+
+
+def wave_cost(shape: LaunchShape, sms: int) -> int:
+    """The estimated time of a launch in units of one saturated wave's: each
+    wave of blocks over the ``sms`` SMs costs its warps per SM, at least
+    :data:`SATURATING_WARPS` (below that a step is a latency chain whose
+    time does not shrink with fewer warps)."""
+    per_wave = shape.blocks_per_sm * sms
+    full, rest = divmod(shape.blocks, per_wave)
+    cost = full * max(shape.warps_per_sm, SATURATING_WARPS)
+    if rest:
+        cost += max(-(-rest // sms) * shape.warps_per_block, SATURATING_WARPS)
+    return cost
+
+
+@functools.lru_cache(maxsize=256)
+def _best_warps(lib, n: int, k: int, mode_id: int, batch: int, sms: int) -> int:
+    """The warps per block whose launch has the least :func:`wave_cost`, the
+    fewest on a tie (more blocks to spread over the SMs)."""
+    best, best_cost = 0, None
+    for warps in range(1, MAX_WARPS_PER_BLOCK + 1):
+        if lib.sweep_magnus2_smem_bytes(n, k, mode_id, warps) > MAX_SHARED_BYTES:
+            break
+        shape = _shape(lib, n, k, mode_id, batch, warps)
+        if shape.blocks_per_sm < 1:
+            break
+        cost = wave_cost(shape, sms)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = warps, cost
     if best == 0:
         raise ValueError(
-            f"the sweep_magnus2 kernel cannot fit one member of n={n}, k={k} in shared memory."
+            f"the sweep_magnus2 kernel cannot fit one warp of n={n}, k={k} on an SM."
         )
     return best
 
 
-def _launch_kernel(inputs: SweepInputs):
+def warps_per_block(n: int, k: int, mode: str, batch: int) -> int:
+    """The block size the wrapper launches on the current CUDA device (see
+    :func:`wave_cost`). Needs the card."""
+    sms = torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
+    return _best_warps(_kernel_lib(), n, k, _MODES.index(mode), batch, sms)
+
+
+def launch_shape(n: int, k: int, mode: str, batch: int,
+                 warps: Optional[int] = None) -> LaunchShape:
+    """The launch the kernel takes on the current CUDA device for ``batch``
+    members (``warps`` per block, by default :func:`warps_per_block`). Needs
+    the card: it builds and asks the library."""
+    if warps is None:
+        warps = warps_per_block(n, k, mode, batch)
+    return _shape(_kernel_lib(), n, k, _MODES.index(mode), batch, int(warps))
+
+
+def _launch_kernel(inputs: SweepInputs, warps: Optional[int] = None):
     n, k, T, B = inputs.n, inputs.k, inputs.steps, inputs.batch
     if n > MAX_N:
         raise ValueError(f"the CUDA sweep_magnus2 kernel takes n <= {MAX_N}; got n={n}.")
@@ -292,7 +404,9 @@ def _launch_kernel(inputs: SweepInputs):
     device = inputs.y0r.device
     mode_id = _MODES.index(inputs.mode)
     lib = _kernel_lib()
-    mb = members_per_block(lib, n, k, mode_id)
+    with torch.cuda.device(device):
+        if warps is None:
+            warps = warps_per_block(n, k, inputs.mode, B)
     outr = torch.empty((n, B), dtype=torch.float32, device=device)
     outi = torch.empty_like(outr)
     evalr = torch.zeros((inputs.n_eval, n, B), dtype=torch.float32, device=device)
@@ -306,9 +420,9 @@ def _launch_kernel(inputs: SweepInputs):
         stream = torch.cuda.current_stream(device).cuda_stream
         code = lib.sweep_magnus2_launch(
             ptr(inputs.statr), ptr(inputs.stati), ptr(inputs.opsr), ptr(inputs.opsi),
-            ptr(inputs.omega), ptr(inputs.coef), ptr(inputs.slots), ptr(inputs.y0r),
+            ptr(inputs.phases), ptr(inputs.coef), ptr(inputs.slots), ptr(inputs.y0r),
             ptr(inputs.y0i), ptr(outr), ptr(outi), ptr(evalr), ptr(evali),
-            n, k, T, B, inputs.order, mode_id, mb, inputs.dt, inputs.t0, c1, c2, stream,
+            n, k, T, B, inputs.order, mode_id, int(warps), c1, c2, stream,
         )
     if code != 0:
         raise RuntimeError(
@@ -330,9 +444,10 @@ def _step_constants(dt: float) -> Tuple[float, float]:
 # ---------------------------------------------------------------------------
 # Layout (B, n, n) / (B, n). Every sum over the inner index is taken in
 # order, one term at a time, and every complex product is
-# (a_r b_r - a_i b_i, a_r b_i + a_i b_r), as in the kernel, which is built
-# without multiply-add contraction; scalars are rounded to the working dtype
-# before they multiply, as the kernel's float arguments are.
+# (a_r b_r - a_i b_i, a_r b_i + a_i b_r); scalars are rounded to the working
+# dtype before they multiply, as the kernel's float arguments are. The
+# kernel fuses multiply-adds and splits its sums, so the two agree to
+# roundoff.
 def _matmul(ar, ai, br, bi):
     """(A @ B) for (B, n, n) planes, summed over the inner index in order."""
     accr = torch.zeros_like(ar)
@@ -372,10 +487,10 @@ def sweep_expm_magnus2_plain(inputs: SweepInputs):
     traj = torch.zeros((2, max(inputs.n_eval, 1), B, n), dtype=real, device=device)
     slots = None if inputs.slots is None else inputs.slots.tolist()
 
-    def generator(step, g, gauss_c):
-        tau = inputs.t0 + (step + gauss_c) * inputs.dt
-        ph = torch.fmod(inputs.omega * tau, _TWO_PI)
-        cos_p, sin_p = torch.cos(ph).to(real), torch.sin(ph).to(real)
+    cos_t, sin_t = phase_matrices(inputs.phases, n)
+
+    def generator(step, g):
+        cos_p, sin_p = cos_t[step, g], sin_t[step, g]
         accr, acci = statr, stati
         for j in range(k):
             c = inputs.coef[step, g, j][:, None, None]  # (B, 1, 1)
@@ -384,8 +499,8 @@ def sweep_expm_magnus2_plain(inputs: SweepInputs):
         return accr * cos_p - acci * sin_p, accr * sin_p + acci * cos_p
 
     for step in range(T):
-        g1r, g1i = generator(step, 0, _GAUSS_C1)
-        g2r, g2i = generator(step, 1, _GAUSS_C2)
+        g1r, g1i = generator(step, 0)
+        g2r, g2i = generator(step, 1)
         if inputs.mode == "matvec":
             vr, vi = yr, yi
             for kk in range(inputs.order, 0, -1):

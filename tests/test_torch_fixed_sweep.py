@@ -360,11 +360,13 @@ def test_auto_mode_cost_model():
 
 
 def test_kernel_source_constants():
-    """The kernel's Gauss nodes are the wrapper's float64 constants."""
+    """The kernel's caps are the wrapper's: the state dimension and the warps
+    per block. (The Gauss nodes live in the wrapper alone since the frame
+    phases come from its table.)"""
     source = (_build.SOURCE_DIR / "sweep_magnus2.cu").read_text()
-    for name, value in (("kGaussC1", ssw._GAUSS_C1), ("kGaussC2", ssw._GAUSS_C2)):
-        literal = re.search(rf"{name} = ([0-9.e-]+);", source).group(1)
-        assert float(literal) == float(value)
+    for name, value in (("kMaxN", ssw.MAX_N), ("kMaxWarps", ssw.MAX_WARPS_PER_BLOCK)):
+        literal = re.search(rf"{name} = ([0-9]+);", source).group(1)
+        assert int(literal) == value
 
 
 def _perturbative_entry_points(eye):
