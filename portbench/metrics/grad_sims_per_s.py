@@ -1,0 +1,9 @@
+"""grad_sims_per_s: members of all value-and-gradient calls completed in the
+window, over the time from the window's start to the end of the last call
+(host clock)."""
+
+
+def read(run):
+    if run.entry != "value_and_grad" or not run.calls:
+        return None
+    return run.members * len(run.calls) / (run.calls[-1][1] - run.window_start)
