@@ -26,7 +26,8 @@ on kernel B8, the Chebyshev-interpolated sweeps, and the perturbative sweeps
 with ``precision="df32"`` on the complex128 kernels B5 and B6; the fused
 expm chain (kernel B9) with ``expm_taylor`` and ``benchmarks.expm_chain``,
 and the device methods of ``solve_ode``/``solve_lmde`` (fixed-step Magnus and
-RK4, Lanczos, parallel, adaptive dopri5/DOP853) with per-solve metrics.
+RK4, Lanczos, parallel, adaptive dopri5/DOP853) with per-solve metrics, and
+spans and counters on the sweep path (``utils.metrics``).
 ``ROADMAP.md`` lists what is still to come.
 """
 import torch as _torch

@@ -11,7 +11,8 @@
 // over the state, max over the tile's members; step factor
 // clip(0.9 err^-1/5, 0.2, 10) (shrink-only on rejection); FSAL; a stall
 // guard; steps clipped to envelope cells and to eval times; an optional
-// record of accepted steps; the tile's output is NaN-poisoned when its step
+// record of accepted steps, and optional counts of the steps attempted and
+// accepted, summed over tiles; the tile's output is NaN-poisoned when its step
 // budget runs out. State and stage arithmetic are float32 (real/imag
 // pairs); time, step sizes and every phase argument (omega t, w t) are
 // float64, reduced with fmod before cos/sin (the TPU kernel needed f32
@@ -130,6 +131,7 @@ struct Params {
   float2* scratch;  // (blocks, V, kSlots, R, threads) where V > 1, else null
   int* steps_out;   // (n_tiles,) steps taken, rejected ones included, or null
   long long* clocks;  // (blocks, 4) thread 0's cycles by part, or null
+  unsigned long long* step_counts;  // (2,) steps attempted and accepted, added to, or null
   int n, k, n_env, n_eval, B, tile_b, max_steps, record;
   int cluster, lanes, members, groups_v, passes_s;  // G, P, tile_b / G, V, S
   double t0, dur, env_dt, atol, rtol, h0;
@@ -280,7 +282,7 @@ __device__ __forceinline__ void rhs(const float2* __restrict__ tab, int n_rt, in
 // so no thread holds the float64 control in registers through the stages.
 struct Control {
   double s, h, h_prop, target;  // elapsed time, this step's size, the proposal, eval target
-  int steps, eidx, aidx, bad;
+  int steps, eidx, aidx, bad;  // steps attempted; eval slots filled; steps accepted; poisoned
   int done, cell;              // the loop ends; this step's envelope cell
   int fsal, fsal_cell;         // stage 0 comes first (FSAL after a cell crossing), its cell
   int accept, eval_slot;       // the last step's outcome: accepted; eval slot to write, or -1
@@ -328,8 +330,8 @@ __device__ void finish_step(const Params& p, Control& c, float err_norm, int ran
   const bool stalled = h <= kEps32x4 * fmax(1.0, s);
   const bool accept = (err_norm <= 1.0f) || stalled;
   c.bad = c.bad || (stalled && err_norm > 1.0f && err_norm > 100.0f);
-  if (accept && p.record) {
-    if (rank == 0) p.rec[(size_t)tile * p.max_steps + c.aidx] = h;
+  if (accept) {
+    if (p.record && rank == 0) p.rec[(size_t)tile * p.max_steps + c.aidx] = h;
     ++c.aidx;
   }
   const double s_new = accept ? s + h : s;
@@ -663,6 +665,10 @@ __global__ void __launch_bounds__(R >= 4 ? 512 : 1024) adaptive_sweep_kernel(Par
   }
   if (threadIdx.x == 0) {
     if (p.steps_out != nullptr && rank == 0) p.steps_out[tile] = ctl.steps;
+    if (p.step_counts != nullptr && rank == 0) {
+      atomicAdd(&p.step_counts[0], (unsigned long long)ctl.steps);
+      atomicAdd(&p.step_counts[1], (unsigned long long)ctl.aidx);
+    }
     if (p.clocks != nullptr) {
       for (int q = 0; q < 4; ++q) p.clocks[(size_t)blockIdx.x * 4 + q] = ctl.clocks[q];
     }
@@ -777,7 +783,8 @@ int adaptive_sweep_launch(const float* statr, const float* stati, const float* o
                           const float* envr, const float* envi, const double* eval_ts,
                           const float* y0r, const float* y0i, float* outr, float* outi,
                           float* evalr, float* evali, double* rec, float* scratch,
-                          int* steps_out, long long* clocks, int n, int k,
+                          int* steps_out, long long* clocks,
+                          unsigned long long* step_counts, int n, int k,
                           int n_env, int n_eval, int B, int tile_b, int max_steps, int record,
                           double t0, double dur, double env_dt, double atol, double rtol,
                           double h0, int G, int P, int R, int threads, int V, int S,
@@ -805,7 +812,7 @@ int adaptive_sweep_launch(const float* statr, const float* stati, const float* o
   }
   Params p{statr, stati, opsr, opsi, omega, freqs, envr, envi, eval_ts, y0r, y0i,
            outr, outi, evalr, evali, rec, reinterpret_cast<float2*>(scratch), steps_out,
-           clocks, n, k, n_env, n_eval, B, tile_b, max_steps, record,
+           clocks, step_counts, n, k, n_env, n_eval, B, tile_b, max_steps, record,
            G, P, tile_b / G, V, S, t0, dur, env_dt, atol, rtol, h0};
   config.stream = (cudaStream_t)stream;
   err = cudaLaunchKernelEx(&config, fn, p);

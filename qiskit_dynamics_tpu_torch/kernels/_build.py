@@ -20,6 +20,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+from ..utils.metrics import count
+
 __all__ = ["load", "BUILD_DIR", "SOURCE_DIR"]
 
 SOURCE_DIR = Path(__file__).resolve().parent.parent / "csrc"
@@ -63,7 +65,10 @@ def load(name: str, defines: tuple = ()) -> ctypes.CDLL:
     The compiler's resource report (``-Xptxas -v``: registers, shared
     memory, spills) is kept beside the library as ``<library>.ptxas.txt``.
     ``defines`` (preprocessor names) build another library from the same
-    source; the package's wrappers pass none.
+    source; the package's wrappers pass none. Every build and load adds to
+    the counters ``kernel.builds`` and ``kernel.loads``
+    (:func:`~qiskit_dynamics_tpu_torch.utils.metrics.counters`), whatever
+    the metrics switch says: a slow set-up shows which library was built.
     """
     src = SOURCE_DIR / f"{name}.cu"
     flags = _flags(name, defines)
@@ -81,4 +86,6 @@ def load(name: str, defines: tuple = ()) -> ctypes.CDLL:
             raise RuntimeError(f"nvcc failed on {src.name}:\n{proc.stdout}\n{proc.stderr}")
         Path(str(lib_path) + ".ptxas.txt").write_text(proc.stdout + proc.stderr)
         os.replace(tmp, lib_path)  # atomic: a concurrent loader sees all or nothing
+        count("kernel.builds", always=True)
+    count("kernel.loads", always=True)
     return ctypes.CDLL(str(lib_path))

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from ..unified import default_device, to_tensor
+from ..utils import metrics
 from .rk_tableaus import (
     DOPRI5_A as _A,
     DOPRI5_B as _B,
@@ -194,17 +195,20 @@ def sweep_dopri5_lockstep(
         ``(final, trajectory)``, ``trajectory`` (len(eval_ts), n, B); with
         ``record_steps`` the result is wrapped as ``(result, step_record)``.
     """
-    inputs = prepare_inputs(
-        static_op, operators, frame_omega, signal_freqs, signal_amps, y0, tf, t0=t0,
-        atol=atol, rtol=rtol, max_steps=max_steps, h0=h0, tile_b=tile_b,
-        env_dt=env_dt, eval_ts=eval_ts,
-    )
-    if inputs.y0r.is_cuda:
-        final, traj, rec = _launch_kernel(inputs, record_steps)
-    elif inputs.y0r.device.type == "cpu":
-        final, traj, rec = sweep_dopri5_lockstep_plain(inputs, record_steps)
-    else:
-        raise RuntimeError(f"sweep_dopri5_lockstep has no path for device {inputs.y0r.device}.")
+    with metrics.span("sweep.prepare"):
+        inputs = prepare_inputs(
+            static_op, operators, frame_omega, signal_freqs, signal_amps, y0, tf, t0=t0,
+            atol=atol, rtol=rtol, max_steps=max_steps, h0=h0, tile_b=tile_b,
+            env_dt=env_dt, eval_ts=eval_ts,
+        )
+    with metrics.span("sweep.engine", tile_b=inputs.tile_b, lanes=inputs.batch):
+        if inputs.y0r.is_cuda:
+            final, traj, rec = _launch_kernel(inputs, record_steps)
+        elif inputs.y0r.device.type == "cpu":
+            final, traj, rec = sweep_dopri5_lockstep_plain(inputs, record_steps)
+        else:
+            raise RuntimeError(
+                f"sweep_dopri5_lockstep has no path for device {inputs.y0r.device}.")
     result = final if traj is None else (final, traj)
     return (result, rec) if record_steps else result
 
@@ -227,9 +231,12 @@ SHARED_TARGET_BYTES = MAX_SHARED_BYTES // 2
 _ERR_RESIDENT = 1002  # the launch's code for a shape the card co-schedules no cluster of
 CONTROL_BYTES = 304  # the kernel's per-block control block (sizeof, padded to 16)
 
+# the counters the kernel adds each tile's steps into, while metrics record
+STEP_COUNTERS = ("b1.steps_attempted", "b1.steps_accepted")
+
 _PTR = ctypes.c_void_p
 _ARGTYPES = (
-    [_PTR] * 19
+    [_PTR] * 20
     + [ctypes.c_int] * 8
     + [ctypes.c_double] * 6
     + [ctypes.c_int] * 6
@@ -383,7 +390,9 @@ def _launch_kernel(inputs: SweepInputs, record_steps: bool, shape: Optional[Laun
     int32 tensor of one entry per tile, receives the steps each tile took
     (rejected ones included); ``clocks``, an int64 (blocks, 4) tensor, the
     cycles thread 0 of each block spent forming tables, in the stages, in
-    the exchange and in the control."""
+    the exchange and in the control. While metrics record, every tile adds
+    its attempted and accepted steps to :data:`STEP_COUNTERS`
+    (:func:`~qiskit_dynamics_tpu_torch.utils.metrics.device_counters`)."""
     n, k, B, tile_b = inputs.n, inputs.k, inputs.batch, inputs.tile_b
     if shape is None:
         shape = launch_shape(n, k, tile_b)
@@ -408,6 +417,7 @@ def _launch_kernel(inputs: SweepInputs, record_steps: bool, shape: Optional[Laun
         return None if t is None or t.numel() == 0 else t.data_ptr()
 
     lib = _kernel_lib()
+    step_counts = metrics.device_counters(STEP_COUNTERS, device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         code = lib.adaptive_sweep_launch(
@@ -415,8 +425,8 @@ def _launch_kernel(inputs: SweepInputs, record_steps: bool, shape: Optional[Laun
             ptr(inputs.omega), ptr(inputs.freqs), ptr(inputs.envr), ptr(inputs.envi),
             ptr(inputs.eval_ts), ptr(inputs.y0r), ptr(inputs.y0i), ptr(outr), ptr(outi),
             ptr(evalr), ptr(evali), ptr(rec) if record_steps else None, ptr(scratch),
-            ptr(steps_out), ptr(clocks), n, k, inputs.n_env, n_eval, B, tile_b,
-            inputs.max_steps, int(record_steps),
+            ptr(steps_out), ptr(clocks), ptr(step_counts), n, k, inputs.n_env, n_eval, B,
+            tile_b, inputs.max_steps, int(record_steps),
             inputs.t0, inputs.dur, inputs.env_dt, inputs.atol, inputs.rtol, inputs.h0,
             *_shape_args(shape), stream,
         )
@@ -563,7 +573,7 @@ def sweep_dopri5_lockstep_plain(inputs: SweepInputs, record_steps: bool = False)
         if record_steps:
             slot = aidx.clamp(max=max_steps - 1)  # finished tiles may sit at max_steps
             rec[tiles, slot] = torch.where(accept, h, rec[tiles, slot])
-            aidx = aidx + accept.long()
+        aidx = aidx + accept.long()
         s_new = torch.where(accept, s + h, s)
 
         if n_env > 1:
@@ -593,6 +603,9 @@ def sweep_dopri5_lockstep_plain(inputs: SweepInputs, record_steps: bool = False)
         s = s_new
         steps = steps + active.long()
 
+    if metrics.recording():
+        for name, per_tile in zip(STEP_COUNTERS, (steps, aidx)):
+            metrics.count(name, int(per_tile.sum()))
     ok = ((inputs.dur - s) <= 0.0) & ~bad & (eidx >= n_eval)
     poison = torch.where(ok, 1.0, float("nan")).float()[:, None, None]
 

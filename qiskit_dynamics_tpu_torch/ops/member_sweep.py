@@ -47,6 +47,7 @@ from dataclasses import dataclass
 import torch
 
 from ..unified import default_device, to_tensor
+from ..utils.metrics import span
 from .sweep_solver import _M3_C0, _M3_C1, _P2, _TWO_PI, MAX_SHARED_BYTES, gauss_nodes
 
 __all__ = ["sweep_expm_magnus2_member", "sweep_expm_magnus2_member_plain", "prepare_inputs"]
@@ -158,14 +159,16 @@ def sweep_expm_magnus2_member(
         ``B``: the kernel gives each member its own block, so no lanes are
         padded.
     """
-    inputs = prepare_inputs(
-        static_op, operators, frame_omega, coefficients, y0, dt, t0=t0, order=order,
-        hermitian=hermitian, magnus=magnus,
-    )
-    if inputs.y0.is_cuda:
-        return _launch_kernel(inputs)
-    if inputs.y0.device.type == "cpu":
-        return sweep_expm_magnus2_member_plain(inputs)
+    with span("sweep.prepare"):
+        inputs = prepare_inputs(
+            static_op, operators, frame_omega, coefficients, y0, dt, t0=t0, order=order,
+            hermitian=hermitian, magnus=magnus,
+        )
+    with span("sweep.engine"):
+        if inputs.y0.is_cuda:
+            return _launch_kernel(inputs)
+        if inputs.y0.device.type == "cpu":
+            return sweep_expm_magnus2_member_plain(inputs)
     raise RuntimeError(f"sweep_expm_magnus2_member has no path for device {inputs.y0.device}.")
 
 

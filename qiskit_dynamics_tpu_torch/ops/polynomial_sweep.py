@@ -41,6 +41,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..unified import default_device, to_numpy, to_tensor
+from ..utils.metrics import count, span
 from .horner_pallas import horner_apply_bm_ad
 from .sweep_solver import _M3_C0, _M3_C1, _P2, _TWO_PI, _validate_eval_slots, gauss_nodes
 
@@ -146,6 +147,7 @@ def _cached_expansion(static_op, operators, frame_diag, dt, magnus_order):
     )
     key = (S.tobytes(), ops.tobytes(), d.tobytes(), float(dt), int(magnus_order))
     hit = _EXPANSION_CACHE.get(key)
+    count("poly.expansion_misses" if hit is None else "poly.expansion_hits")
     if hit is None:
         hit = expand_magnus_polynomial(S, ops, d, dt, magnus_order)
         _EXPANSION_CACHE[key] = hit
@@ -202,48 +204,49 @@ def sweep_expm_magnus_poly(
     """
     if horner not in ("auto", "pallas", "einsum"):
         raise ValueError(f"horner must be 'auto', 'pallas' or 'einsum', got {horner!r}")
-    mon_index, X, d_im = _cached_expansion(
-        static_op, operators, frame_diag, float(dt), int(magnus_order)
-    )
-    n = X.shape[-1]
-    if isinstance(y0, torch.Tensor):
-        device = y0.device
-    elif isinstance(coefficients, torch.Tensor):
-        device = coefficients.device
-    else:
-        device = default_device()
-    coef = to_tensor(coefficients, device=device)
-    real = torch.float64 if coef.dtype == torch.float64 else torch.float32
-    cplx = torch.complex128 if real == torch.float64 else torch.complex64
-    coef = coef.to(real)
-    T, n_gauss, k, B = coef.shape
-    y = to_tensor(y0, device=device).to(cplx)
-    batch_major = y.ndim == 3
-    if not batch_major:
-        y = y.transpose(0, 1)[..., None]  # (B, n, 1)
-    m_cols = y.shape[-1]
-    if horner == "pallas" and m_cols != 1:
-        raise ValueError(
-            f"horner='pallas' supports single-column states only (got m={m_cols}); use "
-            "horner='einsum' for matrix states."
+    with span("sweep.prepare"):
+        mon_index, X, d_im = _cached_expansion(
+            static_op, operators, frame_diag, float(dt), int(magnus_order)
         )
-    if horner == "auto":
-        kernel_ok = m_cols == 1 and real == torch.float32 and n >= KERNEL_MIN_N
-        horner = "pallas" if kernel_ok else "einsum"
+        n = X.shape[-1]
+        if isinstance(y0, torch.Tensor):
+            device = y0.device
+        elif isinstance(coefficients, torch.Tensor):
+            device = coefficients.device
+        else:
+            device = default_device()
+        coef = to_tensor(coefficients, device=device)
+        real = torch.float64 if coef.dtype == torch.float64 else torch.float32
+        cplx = torch.complex128 if real == torch.float64 else torch.complex64
+        coef = coef.to(real)
+        T, n_gauss, k, B = coef.shape
+        y = to_tensor(y0, device=device).to(cplx)
+        batch_major = y.ndim == 3
+        if not batch_major:
+            y = y.transpose(0, 1)[..., None]  # (B, n, 1)
+        m_cols = y.shape[-1]
+        if horner == "pallas" and m_cols != 1:
+            raise ValueError(
+                f"horner='pallas' supports single-column states only (got m={m_cols}); use "
+                "horner='einsum' for matrix states."
+            )
+        if horner == "auto":
+            kernel_ok = m_cols == 1 and real == torch.float32 and n >= KERNEL_MIN_N
+            horner = "pallas" if kernel_ok else "einsum"
 
-    # the kernel route consumes M^T planes: transpose the expansion matrices on
-    # the host, so no transpose exists on the device
-    Xf = (np.swapaxes(X, 1, 2) if horner == "pallas" else X).reshape(X.shape[0], -1)
-    Xr = torch.as_tensor(Xf.real.copy(), device=device).to(real)
-    Xi = torch.as_tensor(Xf.imag.copy(), device=device).to(real)
-    gather = torch.as_tensor(mon_index.astype(np.int64), device=device)
-    d_im = torch.as_tensor(d_im, device=device)  # float64
-    ones = torch.ones((1, B), dtype=real, device=device)
+        # the kernel route consumes M^T planes: transpose the expansion matrices on
+        # the host, so no transpose exists on the device
+        Xf = (np.swapaxes(X, 1, 2) if horner == "pallas" else X).reshape(X.shape[0], -1)
+        Xr = torch.as_tensor(Xf.real.copy(), device=device).to(real)
+        Xi = torch.as_tensor(Xf.imag.copy(), device=device).to(real)
+        gather = torch.as_tensor(mon_index.astype(np.int64), device=device)
+        d_im = torch.as_tensor(d_im, device=device)  # float64
+        ones = torch.ones((1, B), dtype=real, device=device)
 
-    n_eval, slots = 0, None
-    if eval_slots is not None:
-        n_eval = _validate_eval_slots(eval_slots, T)
-        slots = [int(s) for s in eval_slots]
+        n_eval, slots = 0, None
+        if eval_slots is not None:
+            n_eval = _validate_eval_slots(eval_slots, T)
+            slots = [int(s) for s in eval_slots]
 
     def step_fn(y, coef_step, step):
         c_ext = torch.cat([coef_step.reshape(n_gauss * k, B), ones], dim=0)
@@ -267,14 +270,15 @@ def sweep_expm_magnus_poly(
         return torch.conj(Dinv) * w
 
     differentiable = torch.is_grad_enabled() and (coef.requires_grad or y.requires_grad)
-    evals = [None] * n_eval
-    for step in range(T):
-        if differentiable:
-            y = checkpoint(step_fn, y, coef[step], step, use_reentrant=False)
-        else:
-            y = step_fn(y, coef[step], step)
-        if slots is not None and slots[step] >= 0:
-            evals[slots[step]] = y
+    with span("sweep.engine"):
+        evals = [None] * n_eval
+        for step in range(T):
+            if differentiable:
+                y = checkpoint(step_fn, y, coef[step], step, use_reentrant=False)
+            else:
+                y = step_fn(y, coef[step], step)
+            if slots is not None and slots[step] >= 0:
+                evals[slots[step]] = y
     if batch_major:
         return (y, torch.stack(evals)) if n_eval else y
     final = y[..., 0].transpose(0, 1)  # (n, B)

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.metrics import span
 from .member_sweep import sweep_expm_magnus2_member
 from .sweep_solver import sweep_expm_magnus2
 from .xla_sweep import sweep_expm_magnus2_xla
@@ -34,7 +35,7 @@ def _eager_vjp(ctx, cotangents, eval_slots, **engine_kwargs):
     y0) through the eager engine run with ``engine_kwargs``; ``None`` for the
     inputs that need no gradient."""
     wants = ctx.needs_input_grad
-    with torch.enable_grad():
+    with span("sweep.backward"), torch.enable_grad():
         inputs = [x.detach().requires_grad_(wants[i]) for i, x in enumerate(ctx.saved_tensors)]
         out = sweep_expm_magnus2_xla(*inputs, eval_slots=eval_slots, **engine_kwargs)
         outs = out if eval_slots is not None else (out,)

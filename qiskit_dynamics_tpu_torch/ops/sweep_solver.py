@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from ..unified import default_device, to_tensor
+from ..utils.metrics import span
 
 __all__ = ["sweep_expm_magnus2", "sweep_expm_magnus2_plain", "prepare_inputs", "phase_table"]
 
@@ -263,16 +264,18 @@ def sweep_expm_magnus2(
         with ``eval_slots``, ``(final, trajectory)``, trajectory
         (n_eval, n, B).
     """
-    inputs = prepare_inputs(
-        static_op, operators, frame_omega, coefficients, y0, dt, t0=t0, order=order,
-        tile_b=tile_b, hermitian=hermitian, mode=mode, eval_slots=eval_slots,
-    )
-    if inputs.y0r.is_cuda:
-        final, traj = _launch_kernel(inputs)
-    elif inputs.y0r.device.type == "cpu":
-        final, traj = sweep_expm_magnus2_plain(inputs)
-    else:
-        raise RuntimeError(f"sweep_expm_magnus2 has no path for device {inputs.y0r.device}.")
+    with span("sweep.prepare"):
+        inputs = prepare_inputs(
+            static_op, operators, frame_omega, coefficients, y0, dt, t0=t0, order=order,
+            tile_b=tile_b, hermitian=hermitian, mode=mode, eval_slots=eval_slots,
+        )
+    with span("sweep.engine"):
+        if inputs.y0r.is_cuda:
+            final, traj = _launch_kernel(inputs)
+        elif inputs.y0r.device.type == "cpu":
+            final, traj = sweep_expm_magnus2_plain(inputs)
+        else:
+            raise RuntimeError(f"sweep_expm_magnus2 has no path for device {inputs.y0r.device}.")
     return final if traj is None else (final, traj)
 
 

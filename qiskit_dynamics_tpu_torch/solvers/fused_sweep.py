@@ -47,6 +47,7 @@ from ..models.operator_collections import OperatorCollection, VectorizedLindblad
 from ..ops.sweep_solver import gauss_nodes
 from ..signals import SignalList
 from ..unified import is_tensor, to_numpy, to_tensor
+from ..utils.metrics import annotate_call, span
 from .fixed_step_solvers import get_fixed_step_sizes
 
 __all__ = ["fused_sweep_solve", "fused_adaptive_sweep_solve", "sweep_arguments"]
@@ -264,13 +265,14 @@ def fused_sweep_solve(
         return sigs
 
     frame = model.rotating_frame
-    if vectorized_lindblad:
-        rho_fb = frame.operator_into_frame_basis(y0)
-        if rho_fb.shape != (model.dim, model.dim):
-            raise DynamicsError("a Lindblad sweep takes a (dim, dim) density matrix y0.")
-        y0_fb = rho_fb.T.reshape(-1)  # column-stacking vec
-    else:
-        y0_fb = frame.state_into_frame_basis(y0)
+    with span("sweep.lanes"):
+        if vectorized_lindblad:
+            rho_fb = frame.operator_into_frame_basis(y0)
+            if rho_fb.shape != (model.dim, model.dim):
+                raise DynamicsError("a Lindblad sweep takes a (dim, dim) density matrix y0.")
+            y0_fb = rho_fb.T.reshape(-1)  # column-stacking vec
+        else:
+            y0_fb = frame.state_into_frame_basis(y0)
 
     if precision == "df32":
         if df_devices is not None:
@@ -304,15 +306,17 @@ def fused_sweep_solve(
         member_ok=t_eval is None and y0_fb.ndim == 1,
     )
 
-    # Gauss-time signal samples for the whole batch, float64 at absolute times
-    gauss_times = torch.as_tensor(
-        t0 + dt * (np.arange(n_steps)[:, None] + np.array(gauss_nodes(magnus_order))[None, :]),
-        device=device,
-    )
-    params = _tree_map(lambda x: to_tensor(x, device=device), params)
-    coeffs = torch.movedim(
-        torch.func.vmap(lambda p: signals_as_list(p)(gauss_times))(params), 0, -1
-    ).to(device=device, dtype=torch.float32)  # (T, n_gauss, k, B)
+    with span("sweep.tables"):
+        # Gauss-time signal samples for the whole batch, float64 at absolute times
+        gauss_times = torch.as_tensor(
+            t0 + dt * (np.arange(n_steps)[:, None] + np.array(gauss_nodes(magnus_order))[None, :]),
+            device=device,
+        )
+        params = _tree_map(lambda x: to_tensor(x, device=device), params)
+        coeffs = torch.movedim(
+            torch.func.vmap(lambda p: signals_as_list(p)(gauss_times))(params), 0, -1
+        ).to(device=device, dtype=torch.float32)  # (T, n_gauss, k, B)
+    annotate_call(engine=sweep_engine, members=coeffs.shape[-1])
     hermitian = _all_anti_hermitian(model)
 
     traj = None
@@ -327,9 +331,10 @@ def fused_sweep_solve(
         # batch-major (B, n, m): each member's generators are built once and
         # applied to all m state columns
         B = coeffs.shape[-1]
-        y0_mat = y0_fb.reshape(solve_dim, -1)
-        m = y0_mat.shape[1]
-        y0_bm = y0_mat[None].expand(B, solve_dim, m)
+        with span("sweep.lanes"):
+            y0_mat = y0_fb.reshape(solve_dim, -1)
+            m = y0_mat.shape[1]
+            y0_bm = y0_mat[None].expand(B, solve_dim, m)
         if sweep_engine == "poly":
             from ..ops.polynomial_sweep import sweep_expm_magnus_poly
 
@@ -343,16 +348,18 @@ def fused_sweep_solve(
         else:
             from ..ops.xla_sweep import sweep_expm_magnus2_xla
 
-            out = sweep_expm_magnus2_xla(
-                static_fb, ops_fb, omega, coeffs, y0_bm, dt=dt, t0=t0, order=expm_order,
-                hermitian=hermitian, eval_slots=eval_slots, magnus_order=magnus_order,
-            )
-        out_final, traj_bm = out if eval_slots is not None else (out, None)
-        # back to the member-major lane layout of the collectors
-        yf = out_final.permute(1, 0, 2).reshape(solve_dim, B * m)
-        if traj_bm is not None:
-            traj = traj_bm.permute(0, 2, 1, 3).reshape(-1, solve_dim, B * m)
-        y0_cols = y0_mat.repeat(1, B) if m > 1 else y0_mat.expand(solve_dim, B)
+            with span("sweep.engine"):
+                out = sweep_expm_magnus2_xla(
+                    static_fb, ops_fb, omega, coeffs, y0_bm, dt=dt, t0=t0, order=expm_order,
+                    hermitian=hermitian, eval_slots=eval_slots, magnus_order=magnus_order,
+                )
+        with span("sweep.collect"):
+            out_final, traj_bm = out if eval_slots is not None else (out, None)
+            # back to the member-major lane layout of the collectors
+            yf = out_final.permute(1, 0, 2).reshape(solve_dim, B * m)
+            if traj_bm is not None:
+                traj = traj_bm.permute(0, 2, 1, 3).reshape(-1, solve_dim, B * m)
+            y0_cols = y0_mat.repeat(1, B) if m > 1 else y0_mat.expand(solve_dim, B)
     elif sweep_engine == "member":
         from ..ops.member_sweep import sweep_expm_magnus2_member
         from ..ops.sweep_ad import sweep_expm_magnus2_member_ad
@@ -374,7 +381,8 @@ def fused_sweep_solve(
 
         if tile_b is None:
             tile_b = 1  # no padding: the kernel sizes its own blocks
-        coeffs, y0_cols, B, m = _expand_lanes(coeffs, y0_fb, solve_dim, tile_b)
+        with span("sweep.lanes"):
+            coeffs, y0_cols, B, m = _expand_lanes(coeffs, y0_fb, solve_dim, tile_b)
         args = (static_fb, ops_fb, omega, coeffs, y0_cols)
         kwargs = dict(dt=dt, t0=t0, order=expm_order, hermitian=hermitian, mode=magnus_mode,
                       tile_b=tile_b, eval_slots=eval_slots)
@@ -392,18 +400,19 @@ def _collect_solve(model, yf, traj, y0_cols, want_traj: bool, include_t0: bool, 
                    vectorized_lindblad: bool):
     """Frame-basis lanes (and trajectory) -> the standard-basis result of
     :func:`fused_sweep_solve`."""
-    if want_traj:
-        pieces = []
-        if include_t0:
-            pieces.append(y0_cols.to(yf.dtype)[None])
-        if traj is not None:
-            pieces.append(traj)
-        return _collect_trajectory(model, torch.cat(pieces, dim=0), B, m, vectorized_lindblad)
-    if vectorized_lindblad:
-        n = model.dim
-        rho = yf[:, :B].reshape(n, n, B).permute(2, 1, 0)  # (B, n, n)
-        return model.rotating_frame.operator_out_of_frame_basis(rho)
-    return _collect_lanes(model, yf, B, m)
+    with span("sweep.collect"):
+        if want_traj:
+            pieces = []
+            if include_t0:
+                pieces.append(y0_cols.to(yf.dtype)[None])
+            if traj is not None:
+                pieces.append(traj)
+            return _collect_trajectory(model, torch.cat(pieces, dim=0), B, m, vectorized_lindblad)
+        if vectorized_lindblad:
+            n = model.dim
+            rho = yf[:, :B].reshape(n, n, B).permute(2, 1, 0)  # (B, n, n)
+            return model.rotating_frame.operator_out_of_frame_basis(rho)
+        return _collect_lanes(model, yf, B, m)
 
 
 def _adaptive_df_grid(
@@ -562,16 +571,20 @@ def _fused_sweep_solve_df(
     )
     params = _tree_map(lambda x: to_tensor(x, device=device), params)
     with torch.no_grad():
-        coeffs = torch.movedim(
-            torch.func.vmap(lambda p: signals_as_list(p)(gauss_times))(params), 0, -1
-        ).to(torch.float64)  # (T, n_nodes, k, B)
-        coeffs, y0_cols, B, m = _expand_lanes(coeffs, y0_fb, y0_fb.shape[0], 1)
-        y0_cols = y0_cols.to(torch.complex128)
-        out = sweep_expm_magnus_df(
-            static_fb, ops_fb, omega, coeffs, y0_cols, dt=dts, t0=t0,
-            magnus_order=magnus_order, order=max(expm_order, 12), chunk_b=chunk_b,
-            hermitian=_all_anti_hermitian(model), eval_slots=eval_slots,
-        )
+        with span("sweep.tables"):
+            coeffs = torch.movedim(
+                torch.func.vmap(lambda p: signals_as_list(p)(gauss_times))(params), 0, -1
+            ).to(torch.float64)  # (T, n_nodes, k, B)
+        annotate_call(engine="df32", members=coeffs.shape[-1])
+        with span("sweep.lanes"):
+            coeffs, y0_cols, B, m = _expand_lanes(coeffs, y0_fb, y0_fb.shape[0], 1)
+            y0_cols = y0_cols.to(torch.complex128)
+        with span("sweep.engine"):
+            out = sweep_expm_magnus_df(
+                static_fb, ops_fb, omega, coeffs, y0_cols, dt=dts, t0=t0,
+                magnus_order=magnus_order, order=max(expm_order, 12), chunk_b=chunk_b,
+                hermitian=_all_anti_hermitian(model), eval_slots=eval_slots,
+            )
         yf, traj = out if eval_slots is not None else (out, None)
         return _collect_solve(model, yf, traj, y0_cols, eval_slots is not None or include_t0,
                               include_t0, B, m, vectorized_lindblad)
@@ -777,46 +790,50 @@ def sweep_arguments(
             out.append(2 * np.pi * carriers[0])
         return np.asarray(out), sigs
 
-    freqs, probe_sigs = probe_carriers(_tree_map(lambda x: x[0], params))
-    freqs_last, _ = probe_carriers(_tree_map(lambda x: x[-1], params))
-    if not np.allclose(freqs, freqs_last):
-        raise DynamicsError(
-            "fused_adaptive_sweep_solve does not support sweeping the carrier "
-            "frequency — carriers must be the same for every sweep member."
+    with span("sweep.tables"):
+        freqs, probe_sigs = probe_carriers(_tree_map(lambda x: x[0], params))
+        freqs_last, _ = probe_carriers(_tree_map(lambda x: x[-1], params))
+        if not np.allclose(freqs, freqs_last):
+            raise DynamicsError(
+                "fused_adaptive_sweep_solve does not support sweeping the carrier "
+                "frequency — carriers must be the same for every sweep member."
+            )
+        amps = _amplitude_tables(
+            flat_signals, params, probe_sigs, freqs, t0, tf, envelope_resolution, model.device
         )
-    amps = _amplitude_tables(
-        flat_signals, params, probe_sigs, freqs, t0, tf, envelope_resolution, model.device
-    )
     env_dt = 0.0 if envelope_resolution is None else (tf - t0) / int(envelope_resolution)
 
-    # stiffness bucketing: each tile shares one step control, so members of
-    # similar drive magnitude go to the same tile (a pure permutation)
-    inv_order = None
-    if bucket_lanes:
-        key = torch.sum(torch.abs(amps), dim=tuple(range(amps.ndim - 1)))  # (B,)
-        order = torch.argsort(key, stable=True)
-        inv_order = torch.argsort(order)
-        amps = amps[..., order]
+    with span("sweep.lanes"):
+        # stiffness bucketing: each tile shares one step control, so members of
+        # similar drive magnitude go to the same tile (a pure permutation)
+        inv_order = None
+        if bucket_lanes:
+            key = torch.sum(torch.abs(amps), dim=tuple(range(amps.ndim - 1)))  # (B,)
+            order = torch.argsort(key, stable=True)
+            inv_order = torch.argsort(order)
+            amps = amps[..., order]
 
-    y0_fb = model.rotating_frame.state_into_frame_basis(y0)
-    eval_ts, include_t0 = _eval_times(t_eval, t0, tf)
-    amps, y0_cols, B, m = _expand_lanes(amps, y0_fb, solve_dim, tile_b)
+        y0_fb = model.rotating_frame.state_into_frame_basis(y0)
+        eval_ts, include_t0 = _eval_times(t_eval, t0, tf)
+        amps, y0_cols, B, m = _expand_lanes(amps, y0_fb, solve_dim, tile_b)
+    annotate_call(engine="adaptive", members=B)
     args = (static_fb, ops_fb, omega, freqs, amps, y0_cols)
     kwargs = dict(tf=tf, t0=t0, atol=atol, rtol=rtol, max_steps=max_steps, h0=h0,
                   tile_b=tile_b, env_dt=env_dt, eval_ts=eval_ts)
 
     def collect(out_kernel):
-        if t_eval is not None:
-            yf, traj = out_kernel if eval_ts is not None else (out_kernel, None)
-            pieces = []
-            if include_t0:
-                pieces.append(y0_cols.to(yf.dtype)[None])
-            if traj is not None:
-                pieces.append(traj)
-            out = _collect_trajectory(model, torch.cat(pieces, dim=0), B, m)
-        else:
-            out = _collect_lanes(model, out_kernel, B, m)
-        return out if inv_order is None else out[inv_order]
+        with span("sweep.collect"):
+            if t_eval is not None:
+                yf, traj = out_kernel if eval_ts is not None else (out_kernel, None)
+                pieces = []
+                if include_t0:
+                    pieces.append(y0_cols.to(yf.dtype)[None])
+                if traj is not None:
+                    pieces.append(traj)
+                out = _collect_trajectory(model, torch.cat(pieces, dim=0), B, m)
+            else:
+                out = _collect_lanes(model, out_kernel, B, m)
+            return out if inv_order is None else out[inv_order]
 
     return args, kwargs, collect
 

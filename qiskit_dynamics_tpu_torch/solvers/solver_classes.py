@@ -31,6 +31,7 @@ from ..models import HamiltonianModel, LindbladModel, rotating_wave_approximatio
 from ..signals import Signal, SignalList
 from ..unified import to_tensor
 from .results import OdeResult
+from ..utils.metrics import span
 from .solver_functions import solve_lmde
 
 __all__ = ["Solver"]
@@ -174,33 +175,37 @@ class Solver:
         from .fused_sweep import fused_adaptive_sweep_solve, fused_sweep_solve
 
         rwa_signal_map = kwargs.pop("rwa_signal_map", self._rwa_signal_map)
-        if method in ("fused_dopri5", "fused"):
-            return fused_adaptive_sweep_solve(
-                self.model, signals_fn, params, t_span=t_span, y0=y0,
-                rwa_signal_map=rwa_signal_map, **kwargs,
-            )
-        if method in ("fused_magnus2", "fused_expm"):
-            return fused_sweep_solve(
-                self.model, signals_fn, params, t_span=t_span, y0=y0,
-                rwa_signal_map=rwa_signal_map, **kwargs,
-            )
-        if method == "chebyshev":
-            from .sweep_interpolation import interpolated_sweep_solve, interpolated_sweep_solve_2d
+        with span("sweep.call", method=method):
+            if method in ("fused_dopri5", "fused"):
+                return fused_adaptive_sweep_solve(
+                    self.model, signals_fn, params, t_span=t_span, y0=y0,
+                    rwa_signal_map=rwa_signal_map, **kwargs,
+                )
+            if method in ("fused_magnus2", "fused_expm"):
+                return fused_sweep_solve(
+                    self.model, signals_fn, params, t_span=t_span, y0=y0,
+                    rwa_signal_map=rwa_signal_map, **kwargs,
+                )
+            if method == "chebyshev":
+                from .sweep_interpolation import (
+                    interpolated_sweep_solve,
+                    interpolated_sweep_solve_2d,
+                )
 
-            # 2-d forms: a (p1_vals, p2_vals) tuple (product grid) or a (B, 2)
-            # point array; everything else is the 1-d scalar sweep
-            is_2d = (
-                isinstance(params, tuple) and len(params) == 2
-                and all(len(_shape(q)) == 1 for q in params)
-            ) or (
-                not isinstance(params, tuple) and len(_shape(params)) == 2
-                and _shape(params)[1] == 2
-            )
-            cheb = interpolated_sweep_solve_2d if is_2d else interpolated_sweep_solve
-            return cheb(
-                self.model, signals_fn, params, t_span=t_span, y0=y0,
-                rwa_signal_map=rwa_signal_map, **kwargs,
-            )
+                # 2-d forms: a (p1_vals, p2_vals) tuple (product grid) or a (B, 2)
+                # point array; everything else is the 1-d scalar sweep
+                is_2d = (
+                    isinstance(params, tuple) and len(params) == 2
+                    and all(len(_shape(q)) == 1 for q in params)
+                ) or (
+                    not isinstance(params, tuple) and len(_shape(params)) == 2
+                    and _shape(params)[1] == 2
+                )
+                cheb = interpolated_sweep_solve_2d if is_2d else interpolated_sweep_solve
+                return cheb(
+                    self.model, signals_fn, params, t_span=t_span, y0=y0,
+                    rwa_signal_map=rwa_signal_map, **kwargs,
+                )
         raise DynamicsError(
             f"unknown solve_sweep method {method!r}; use 'fused_dopri5', 'fused_magnus2' or "
             "'chebyshev'."
