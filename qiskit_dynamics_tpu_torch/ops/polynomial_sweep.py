@@ -16,14 +16,21 @@ with ``D_r = D(t_ref)`` shared by the Gauss points of the step and
 ring homomorphism, so the whole Magnus bracket polynomial is evaluated on the
 ``tilde A_i`` and the ``D_r`` sandwich moves into the state transform:
 ``expm(D M D^{-1}) y = D expm(M) D^{-1} y``. The bracket polynomial is
-multilinear in the per-member Gauss coefficients, so it expands (once, on the
-host, in float64, where all commutator cancellations happen) into
+multilinear in the per-member Gauss coefficients, so it expands (on the host,
+in float64, where all commutator cancellations happen) into
 
 .. math:: \tilde M_b = \sum_q \mathrm{mono}_q(c_b)\, X_q
 
 with ``Q`` member-independent matrices ``X_q`` (``Q <= 56`` for one drive
-operator at Magnus order 3). Per step the device then does one monomial
-gather-product ``(Q, B)``, one ``(B, Q) @ (Q, n^2)`` contraction per plane
+operator at Magnus order 3). Two small LRU caches keep this work out of
+repeated calls. The host one keeps the float64 expansion by the operands'
+values. The device one keeps what a call consumes: the ``X_q`` as real and
+imaginary ``(Q, n^2)`` planes in the call's dtype (transposed for the kernel
+route), the monomial index and the frame diagonal, keyed by device, route and
+dtype and by the operands, a tensor by its identity and in-place version, so
+a repeated call with the same operator tensors reads back none of them and
+uploads nothing. Per step the device then does one monomial gather-product
+``(Q, B)``, one ``(B, Q) @ (Q, n^2)`` contraction per plane
 (``torch.matmul``: the JAX package leaves it to XLA outside any kernel), two
 diagonal phase multiplies on the state, and the Horner ``expm`` action, which
 goes to kernel B4 (:mod:`~qiskit_dynamics_tpu_torch.ops.horner_pallas`) or to
@@ -35,6 +42,9 @@ pairs). Not carried: the JAX package's compile-time warning for large
 dimensions and ``interpret``.
 """
 from __future__ import annotations
+
+import threading
+from collections import OrderedDict
 
 import numpy as np
 import torch
@@ -134,24 +144,82 @@ def expand_magnus_polynomial(static_op, operators, frame_diag, dt: float, magnus
     return mon_index, np.stack([M[m] for m in monos], axis=0)
 
 
-_EXPANSION_CACHE: dict = {}
+# entries per cache, least recently used out: at n = 1,040 a prepared entry is ~200 MB
+_CACHE_ENTRIES = 4
+_EXPANSION_CACHE: OrderedDict = OrderedDict()  # operand values -> host (mon_index, X)
+_PREPARED_CACHE: OrderedDict = OrderedDict()  # operand identities + route -> device planes
+_CACHE_LOCK = threading.Lock()
 
 
-def _cached_expansion(static_op, operators, frame_diag, dt, magnus_order):
-    S = to_numpy(static_op).astype(np.complex128)
-    ops = to_numpy(operators).astype(np.complex128)
-    d = (
-        np.zeros(S.shape[0], dtype=np.complex128)
-        if frame_diag is None
-        else to_numpy(frame_diag).astype(np.complex128)
-    )
-    key = (S.tobytes(), ops.tobytes(), d.tobytes(), float(dt), int(magnus_order))
-    hit = _EXPANSION_CACHE.get(key)
-    count("poly.expansion_misses" if hit is None else "poly.expansion_hits")
+def _lru_get(cache, key):
+    with _CACHE_LOCK:
+        hit = cache.get(key)
+        if hit is not None:
+            cache.move_to_end(key)
+        return hit
+
+
+def _lru_put(cache, key, value):
+    with _CACHE_LOCK:
+        cache[key] = value
+        while len(cache) > _CACHE_ENTRIES:
+            cache.popitem(last=False)
+
+
+def _host_complex(x):
+    return to_numpy(x).astype(np.complex128)
+
+
+def _operand_key(x):
+    """A tensor by identity and in-place version (the prepared entry holds
+    it, so its id is not reused while the entry lives); anything else, or an
+    inference tensor (which keeps no version), by value."""
+    if isinstance(x, torch.Tensor) and not x.is_inference():
+        return (id(x), x._version, tuple(x.shape), x.dtype, x.device)
+    a = _host_complex(x)
+    return (a.shape, a.tobytes())
+
+
+def _host_expansion(S, ops, d, dt, magnus_order):
+    key = (S.shape, S.tobytes(), ops.shape, ops.tobytes(), d.tobytes(), dt, magnus_order)
+    hit = _lru_get(_EXPANSION_CACHE, key)
     if hit is None:
         hit = expand_magnus_polynomial(S, ops, d, dt, magnus_order)
-        _EXPANSION_CACHE[key] = hit
-    return hit + (d.imag.copy(),)
+        _lru_put(_EXPANSION_CACHE, key, hit)
+    return hit
+
+
+def _prepared_expansion(static_op, operators, frame_diag, dt, magnus_order, device, route, real):
+    """``(gather, Xr, Xi, d_im)`` on ``device``: the int64 monomial index,
+    the expansion's real and imaginary planes as ``(Q, n^2)`` in ``real``
+    (of ``M^T`` for the kernel route), and the frame diagonal's float64
+    imaginary part. A hit reads back only the (n,) frame diagonal, and
+    uploads nothing; a miss takes the float64 expansion from the host cache
+    (or expands) and uploads it."""
+    d = None if frame_diag is None else _host_complex(frame_diag)
+    key = (
+        device, route, real, _operand_key(static_op), _operand_key(operators),
+        None if d is None else d.tobytes(), dt, magnus_order,
+    )
+    entry = _lru_get(_PREPARED_CACHE, key)
+    count("poly.expansion_misses" if entry is None else "poly.expansion_hits")
+    if entry is None:
+        S, ops = _host_complex(static_op), _host_complex(operators)
+        if d is None:
+            d = np.zeros(S.shape[0], dtype=np.complex128)
+        mon_index, X = _host_expansion(S, ops, d, dt, magnus_order)
+        # the kernel route consumes M^T planes: transpose on the host, so no
+        # transpose exists on the device
+        Xf = (np.swapaxes(X, 1, 2) if route == "pallas" else X).reshape(X.shape[0], -1)
+        entry = (
+            torch.as_tensor(mon_index.astype(np.int64), device=device),
+            torch.as_tensor(Xf.real.copy(), device=device).to(real),
+            torch.as_tensor(Xf.imag.copy(), device=device).to(real),
+            torch.as_tensor(d.imag.copy(), device=device),
+            (static_op, operators),  # held: their ids stay theirs while the entry lives
+        )
+        _lru_put(_PREPARED_CACHE, key, entry)
+    return entry[:4]
 
 
 # ---------------------------------------------------------------------------
@@ -168,14 +236,19 @@ def sweep_expm_magnus_poly(
     :func:`~qiskit_dynamics_tpu_torch.ops.xla_sweep.sweep_expm_magnus2_xla`
     (same step rule, same Horner polynomial, same coefficient-table contract)
     that replaces the per-member batched commutator matmuls with one
-    ``(B, Q) @ (Q, n^2)`` contraction against host-precomputed expansion
-    matrices (see the module docstring).
+    ``(B, Q) @ (Q, n^2)`` contraction against expansion matrices formed on
+    the host and kept on the device between calls (see the module
+    docstring).
 
     Args:
         static_op: (n, n) static generator in the frame eigenbasis, frame
             diagonal already subtracted. Concrete values: the expansion runs
-            on the host (no gradient reaches it or ``operators``).
-        operators: (k, n, n) drive operators in the frame eigenbasis.
+            on the host (no gradient reaches it or ``operators``). A tensor
+            is cached by identity and in-place version (a cache entry holds
+            it); change it in place, or pass another, and the next call
+            expands anew.
+        operators: (k, n, n) drive operators in the frame eigenbasis, cached
+            as ``static_op``.
         frame_diag: (n,) frame eigenvalues ``d`` (purely imaginary), or
             ``None`` for no frame.
         coefficients: (T, n_gauss, k, B) real Gauss-point signal samples. Its
@@ -205,10 +278,6 @@ def sweep_expm_magnus_poly(
     if horner not in ("auto", "pallas", "einsum"):
         raise ValueError(f"horner must be 'auto', 'pallas' or 'einsum', got {horner!r}")
     with span("sweep.prepare"):
-        mon_index, X, d_im = _cached_expansion(
-            static_op, operators, frame_diag, float(dt), int(magnus_order)
-        )
-        n = X.shape[-1]
         if isinstance(y0, torch.Tensor):
             device = y0.device
         elif isinstance(coefficients, torch.Tensor):
@@ -224,7 +293,7 @@ def sweep_expm_magnus_poly(
         batch_major = y.ndim == 3
         if not batch_major:
             y = y.transpose(0, 1)[..., None]  # (B, n, 1)
-        m_cols = y.shape[-1]
+        n, m_cols = y.shape[1], y.shape[-1]
         if horner == "pallas" and m_cols != 1:
             raise ValueError(
                 f"horner='pallas' supports single-column states only (got m={m_cols}); use "
@@ -234,13 +303,9 @@ def sweep_expm_magnus_poly(
             kernel_ok = m_cols == 1 and real == torch.float32 and n >= KERNEL_MIN_N
             horner = "pallas" if kernel_ok else "einsum"
 
-        # the kernel route consumes M^T planes: transpose the expansion matrices on
-        # the host, so no transpose exists on the device
-        Xf = (np.swapaxes(X, 1, 2) if horner == "pallas" else X).reshape(X.shape[0], -1)
-        Xr = torch.as_tensor(Xf.real.copy(), device=device).to(real)
-        Xi = torch.as_tensor(Xf.imag.copy(), device=device).to(real)
-        gather = torch.as_tensor(mon_index.astype(np.int64), device=device)
-        d_im = torch.as_tensor(d_im, device=device)  # float64
+        gather, Xr, Xi, d_im = _prepared_expansion(
+            static_op, operators, frame_diag, float(dt), int(magnus_order), device, horner, real
+        )
         ones = torch.ones((1, B), dtype=real, device=device)
 
         n_eval, slots = 0, None

@@ -8,12 +8,16 @@ their own order (the member sweep's products run on the tensor cores in
 (``torch.matmul``) to float32 roundoff, not bit for bit: states stay within
 1e-5 on norm-1 states (measured a few 1e-7). The Horner kernel is also
 held at n = 1,100 and 2,048 (past the old cap of 1,024) and inside the
-polynomial sweep at n = 1,040. The member-sweep dims 33, 37 and
-63 are ragged for its 16-row MMA tiles. Where the brackets dominate the step
-(generators of norm ~20, steps of 0.1) the member sweep is also held against
-the plain version in complex128 within 5e-6, which float32 products meet and
-single-pass TF32 products (~7e-5) fail. This file imports nothing of JAX.
+polynomial sweep at n = 1,040; at n = 256 a repeated polynomial sweep is
+held to upload nothing of its expansion (a profiled call). The member-sweep
+dims 33, 37 and 63 are ragged for its 16-row MMA tiles. Where the brackets
+dominate the step (generators of norm ~20, steps of 0.1) the member sweep is
+also held against the plain version in complex128 within 5e-6, which float32
+products meet and single-pass TF32 products (~7e-5) fail. This file imports
+nothing of JAX.
 """
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -200,6 +204,59 @@ def test_poly_sweep_auto_route_above_1024(cuda):
     torch.cuda.synchronize()
     assert out.shape == ref.shape == (n, members)
     assert float((out - ref).abs().max()) <= TOL
+
+
+def _h2d_copy_bytes(fn, path):
+    """``fn()`` under ``torch.profiler``, and the byte counts of its
+    host-to-device copies in the Chrome trace."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        out = fn()
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    return out, [ev["args"]["bytes"] for ev in events
+                 if ev.get("cat") == "gpu_memcpy" and "HtoD" in ev.get("name", "")]
+
+
+def test_poly_sweep_cache_hit_uploads_nothing(cuda, tmp_path):
+    """At the open-system cell's shape (n = 256, Magnus-3, one operator:
+    Q = 24) a second call on the same operator tensors issues no
+    host-to-device copy above 64 KB, and its output equals an uncached
+    call's bit for bit. The first call's upload of the planes shows that the
+    trace sees such copies."""
+    n, members, steps = 256, 64, 3
+    gen = np.random.default_rng(256)
+
+    def hermitian():
+        a = gen.normal(size=(n, n)) + 1j * gen.normal(size=(n, n))
+        return (a + a.conj().T) / (2 * np.sqrt(n))
+
+    static = torch.as_tensor(-1j * hermitian(), device=cuda)
+    ops = torch.as_tensor(-1j * hermitian()[None], device=cuda)
+    frame = torch.as_tensor(1j * 2 * np.pi * np.sort(gen.uniform(0.0, 5.0, n)), device=cuda)
+    coef = torch.as_tensor(gen.uniform(-1, 1, (steps, 3, 1, members)), device=cuda).float()
+    y0 = gen.normal(size=(n, members)) + 1j * gen.normal(size=(n, members))
+    y0 = torch.as_tensor(y0 / np.linalg.norm(y0, axis=0), device=cuda)
+
+    def call():
+        out = psw.sweep_expm_magnus_poly(static, ops, frame, coef, y0, dt=0.08, magnus_order=3)
+        torch.cuda.synchronize()
+        return out
+
+    psw._PREPARED_CACHE.clear()
+    psw._EXPANSION_CACHE.clear()
+    first, first_copies = _h2d_copy_bytes(call, tmp_path / "miss.json")
+    gather = next(iter(psw._PREPARED_CACHE.values()))[0]
+    assert gather.shape[0] == 24
+    before = hp.horner_apply_bm.launches
+    second, second_copies = _h2d_copy_bytes(call, tmp_path / "hit.json")
+    assert hp.horner_apply_bm.launches == before + steps  # the kernel route
+    assert max(first_copies) > 1 << 16
+    assert max(second_copies, default=0) <= 1 << 16, second_copies
+    psw._PREPARED_CACHE.clear()
+    psw._EXPANSION_CACHE.clear()
+    uncached = call()
+    assert torch.equal(second, uncached) and torch.equal(first, uncached)
 
 
 @pytest.mark.parametrize("n", [64, 100, 256])

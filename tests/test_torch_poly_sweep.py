@@ -18,9 +18,16 @@ Tolerances and their reasons:
   against the JAX package (x64): 2e-5, the port runs float32; against
   DOP853(1e-13): 5e-6. Gradients: 1e-5 of max |g| against the JAX gradient.
 
+The prepared-expansion cache (no JAX): a repeated call is a hit, bit for bit
+the uncached output, and reads back only the frame diagonal; an in-place or
+new operand, another frame or ``dt``, misses; routes and dtypes keep separate
+entries; the cache holds at most its cap and frees what it evicts.
+
 The JAX Pallas Horner kernel is run in interpret mode twice: once alone, once
 inside the JAX polynomial sweep.
 """
+import weakref
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -44,6 +51,7 @@ from qiskit_dynamics_tpu_torch.ops import polynomial_sweep as psw
 from qiskit_dynamics_tpu_torch.ops.xla_sweep import sweep_expm_magnus2_xla
 from qiskit_dynamics_tpu_torch.solvers import fused_sweep_solve
 from qiskit_dynamics_tpu_torch.solvers.fused_sweep import _select_engine
+from qiskit_dynamics_tpu_torch.utils import metrics
 
 N, T, B = 6, 6, 5
 DT, T0 = 0.1, 0.3
@@ -234,6 +242,152 @@ def test_poly_sweep_gradient_central_difference(sweep_inputs, horner):
         down[idx] -= h
         fd = (loss(torch.as_tensor(up)) - loss(torch.as_tensor(down))).item() / (2 * h)
         assert abs(c.grad[idx].item() - fd) <= 1e-6 * max(1.0, abs(fd)), (idx, c.grad[idx], fd)
+
+
+# --- the prepared-expansion cache --------------------------------------------
+@pytest.fixture
+def cache_inputs():
+    """Operands as the fused sweep passes them (tensors), with the cache and
+    the counters empty before and after."""
+    psw._PREPARED_CACHE.clear()
+    psw._EXPANSION_CACHE.clear()
+    metrics.disable_metrics(clear=True)
+    metrics.enable_metrics()
+    static, ops, d = _operators(N, 2, 440)
+    gen = rng(441)
+    y0 = gen.normal(size=(N, B)) + 1j * gen.normal(size=(N, B))
+    yield dict(static=torch.as_tensor(static), ops=torch.as_tensor(ops), d=torch.as_tensor(d),
+               coef=torch.as_tensor(gen.normal(size=(T, 3, 2, B))),
+               y0=torch.as_tensor(y0 / np.linalg.norm(y0, axis=0)))
+    metrics.disable_metrics(clear=True)
+    psw._PREPARED_CACHE.clear()
+    psw._EXPANSION_CACHE.clear()
+
+
+def _cached_solve(p, horner="einsum", real=torch.float64, **change):
+    q = {**p, **change}
+    return psw.sweep_expm_magnus_poly(q["static"], q["ops"], q["d"], q["coef"].to(real), q["y0"],
+                                      dt=q.get("dt", DT), t0=T0, magnus_order=3, horner=horner)
+
+
+def _uncached_solve(p, **kw):
+    psw._PREPARED_CACHE.clear()
+    psw._EXPANSION_CACHE.clear()
+    return _cached_solve(p, **kw)
+
+
+def _lookups():
+    got = metrics.counters()
+    return got.get("poly.expansion_misses", 0), got.get("poly.expansion_hits", 0)
+
+
+ROUTES = [("einsum", torch.float64), ("einsum", torch.float32), ("pallas", torch.float64),
+          ("pallas", torch.float32)]
+
+
+@pytest.mark.parametrize("horner, real", ROUTES)
+def test_prepared_cache_hit_is_bit_identical(cache_inputs, horner, real):
+    first = _cached_solve(cache_inputs, horner, real)
+    second = _cached_solve(cache_inputs, horner, real)
+    assert _lookups() == (1, 1)
+    assert torch.equal(first, second)
+    assert torch.equal(second, _uncached_solve(cache_inputs, horner=horner, real=real))
+    for entry in psw._PREPARED_CACHE.values():
+        assert not any(x.requires_grad for x in entry[:4])
+
+
+def test_prepared_cache_keys_inference_tensors_by_value(cache_inputs):
+    """Tensors made under ``torch.inference_mode`` keep no version counter:
+    they are keyed by value, so an equal copy hits and another value misses."""
+    p = cache_inputs
+    with torch.inference_mode():
+        frozen = {name: p[name].clone() for name in ("static", "ops")}
+        first = _cached_solve(p, **frozen)
+        again = _cached_solve(p, ops=frozen["ops"].clone(), static=frozen["static"])
+        other = _cached_solve(p, ops=2 * frozen["ops"], static=frozen["static"])
+    assert _lookups() == (2, 1)
+    assert torch.equal(first, again) and not torch.equal(first, other)
+
+
+def test_prepared_cache_routes_and_dtypes_are_separate_entries(cache_inputs):
+    outs = [_cached_solve(cache_inputs, horner, real) for horner, real in ROUTES]
+    assert _lookups() == (len(ROUTES), 0)
+    assert len(psw._PREPARED_CACHE) == len(ROUTES)
+    assert len(psw._EXPANSION_CACHE) == 1  # one float64 expansion serves all four
+    again = [_cached_solve(cache_inputs, horner, real) for horner, real in ROUTES]
+    assert _lookups() == (len(ROUTES), len(ROUTES))
+    for (horner, real), out, hit in zip(ROUTES, outs, again):
+        assert out.dtype == (torch.complex128 if real == torch.float64 else torch.complex64)
+        assert torch.equal(out, hit)
+        assert torch.equal(out, _uncached_solve(cache_inputs, horner=horner, real=real))
+
+
+def test_prepared_cache_hit_reads_back_only_the_frame_diagonal(cache_inputs, monkeypatch):
+    """On a hit nothing of the operators' size comes back to the host,
+    through the module's ``to_numpy`` or a tensor's ``.cpu()``/``.numpy()``."""
+    shapes = []
+    real_to_numpy = psw.to_numpy
+    monkeypatch.setattr(psw, "to_numpy", lambda x: shapes.append(tuple(x.shape)) or
+                        real_to_numpy(x))
+
+    class Readbacks(torch.overrides.TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if func in (torch.Tensor.cpu, torch.Tensor.numpy):
+                shapes.append(tuple(args[0].shape))
+            return func(*args, **(kwargs or {}))
+
+    _cached_solve(cache_inputs, "pallas", torch.float32)
+    assert (N, N) in shapes and (2, N, N) in shapes  # the miss reads the operators
+    shapes.clear()
+    with Readbacks():
+        _cached_solve(cache_inputs, "pallas", torch.float32)
+    assert _lookups() == (1, 1)
+    assert shapes and set(shapes) == {(N,)}
+
+
+def _bump_static(p):
+    p["static"].add_(0.1 * p["static"].conj().T)
+
+
+@pytest.mark.parametrize("case", ["ops_in_place", "static_in_place", "new_tensor", "numpy",
+                                  "frame", "dt"])
+def test_prepared_cache_misses_on_any_change(cache_inputs, case):
+    p = cache_inputs
+    if case == "numpy":
+        p["static"], p["ops"] = p["static"].numpy().copy(), p["ops"].numpy().copy()
+    before = _cached_solve(p)
+    change = {}
+    if case == "ops_in_place":
+        p["ops"].mul_(2)
+    elif case == "static_in_place":
+        _bump_static(p)
+    elif case == "new_tensor":
+        change["ops"] = 2 * p["ops"]
+    elif case == "numpy":
+        p["static"][0, 1] += 0.25  # the same array object, another value
+    elif case == "frame":
+        change["d"] = p["d"] * 1.5
+    else:
+        change["dt"] = 0.5 * DT
+    after = _cached_solve(p, **change)
+    assert _lookups() == (2, 0)
+    assert not torch.equal(before, after)
+    assert torch.equal(after, _uncached_solve(p, **change))
+
+
+def test_prepared_cache_is_bounded(cache_inputs):
+    p = cache_inputs
+    cap = psw._CACHE_ENTRIES
+    _cached_solve(p)
+    evicted = weakref.ref(next(iter(psw._PREPARED_CACHE.values()))[1])
+    outs = [_cached_solve(p, ops=p["ops"] * (1 + 0.1 * i)) for i in range(cap + 2)]
+    assert _lookups() == (cap + 3, 0)
+    assert len(psw._PREPARED_CACHE) == cap and len(psw._EXPANSION_CACHE) == cap
+    assert evicted() is None  # an evicted entry's planes are freed
+    # the earliest entries went first, and come back equal to what they gave
+    again = _cached_solve(p, ops=p["ops"] * 1.0)
+    assert _lookups() == (cap + 4, 0)
+    assert torch.equal(again, outs[0])
 
 
 # --- fused_sweep_solve(sweep_engine="poly") on the dim-4 Lindblad model ------
