@@ -67,9 +67,7 @@ def read_side(cell, model, seed, device, side, probes=None):
     if side == "control":
         y, g, dev = control_call(model, tr, amps, device)
     else:
-        from portbench.program import Program
-
-        y, g = Program(model, tr, device).call(amps)
+        y, g = harness.program_module(tr).Program(model, tr, device).call(amps)
         dev = harness.deviation(torch, y, model.vectorized)
     if device.type == "cuda":
         torch.cuda.synchronize()

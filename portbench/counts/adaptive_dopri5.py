@@ -1,9 +1,9 @@
 """The lockstep-adaptive dopri5 sweep (kernel B1's algorithm).
 
 Copied from ``chip_smoke.py`` (``b1_work``). Its work depends on the steps
-each tile accepted, which no public result of ``solve_sweep`` reports yet,
-so no cell reads it: a cell of the adaptive path reports no roofline until
-the sweep reports its steps.
+each tile accepted: ``portbench/metrics/adaptive_roofline_pct.py`` reads
+them from the port's counter ``b1.steps_accepted`` and B1's ``sweep.engine``
+spans in a traced run.
 """
 from __future__ import annotations
 

@@ -1,9 +1,11 @@
 """One run of one cell: set-up, the measured window, the comparison, the
 result line.
 
-1. Build the cell's configuration and the port's ``Solver`` from it, draw the
-   amplitude sets from ``--seed`` on the device, and warm up with the cell's
-   own calls: all of it is ``setup_s``.
+1. Build the cell's configuration and the program from it (the port's
+   ``Solver`` by :mod:`portbench.program`, or the traffic's ``"program"``
+   from ``portbench/programs/``), draw the amplitude sets from ``--seed`` on
+   the device, and warm up with the cell's own calls: all of it is
+   ``setup_s``.
 2. The window: one caller issues the cell's call back to back (a closed
    loop, as a calibration or control loop that waits for each scan) and
    starts calls until ``--seconds`` have passed. Each call is timed on the
@@ -21,6 +23,7 @@ from __future__ import annotations
 
 import argparse
 import gc
+import importlib
 import json
 import os
 import subprocess
@@ -42,11 +45,22 @@ def forbidden_modules():
     return sorted(name for name in list(sys.modules) if name.split(".")[0] in FORBIDDEN)
 
 
+def program_module(traffic: dict):
+    """The module whose ``Program`` makes the cell's call: the traffic's
+    ``"program"``, ``portbench/programs/<name>.py``, or without one
+    :mod:`portbench.program`."""
+    name = traffic.get("program")
+    if name is None:
+        return importlib.import_module(f"{__package__}.program")
+    return importlib.import_module(f"{__package__}.programs.{spec.check_name(name)}")
+
+
 class Run:
     """What one run measured; the metric readers read it."""
 
-    def __init__(self, cell, model, setup_s, window_start, calls, spans, trace):
+    def __init__(self, cell, model, setup_s, window_start, calls, spans, trace, shape=None):
         self.cell, self.model = cell, model
+        self._shape = shape  # the program module's sweep_shape(model, traffic), if any
         self.traffic = cell.traffic
         self.members = int(cell.traffic["members"])
         self.setup_s = setup_s
@@ -61,6 +75,8 @@ class Run:
 
     def sweep_shape(self) -> dict:
         """The sizes a work count reads (see ``portbench/counts``)."""
+        if self._shape is not None:
+            return self._shape(self.model, self.traffic)
         opts = self.traffic.get("options", {})
         dim = self.model.dim
         rwa = self.model.rwa_cutoff_ghz is not None
@@ -156,8 +172,7 @@ def execute(cell, seed: int, seconds: float, traced: bool, device, t0: float, wr
     with it)."""
     import torch
 
-    from .program import Program
-
+    program_mod = program_module(cell.traffic)  # imports the port
     cuda = device.type == "cuda"
 
     def sync():
@@ -171,7 +186,7 @@ def execute(cell, seed: int, seconds: float, traced: bool, device, t0: float, wr
         marks.append(("cuda", time.perf_counter()))
     model = model_mod.build(cell.config)
     spans = trace_mod.Spans()
-    program = Program(model, tr, device, span=spans)
+    program = program_mod.Program(model, tr, device, span=spans)
     call = wrap(program.call) if wrap else program.call
     traffic = Traffic(tr, seed, device)
     density = model.vectorized
@@ -241,7 +256,8 @@ def execute(cell, seed: int, seconds: float, traced: bool, device, t0: float, wr
         del prof
     memory = torch.cuda.max_memory_allocated() if cuda else 0
 
-    run = Run(cell, model, window_start - t0, window_start, calls, dict(spans.seconds), summary)
+    run = Run(cell, model, window_start - t0, window_start, calls, dict(spans.seconds), summary,
+              shape=getattr(program_mod, "sweep_shape", None))
     metrics = {}
     for metric in (cell.per_layer if traced else cell.end_to_end):
         value = metric.reader().read(run)

@@ -2,7 +2,8 @@
 
 ``len(freqs_ghz)`` transmons of ``levels`` levels each, in ``np.kron`` order
 (transmon 0 is the leftmost factor), exchange coupling between neighbours,
-drives on single transmons and optional amplitude damping:
+drives on single transmons (each with an optional ``envelope``, see
+:mod:`portbench.model`) and optional amplitude damping:
 
     H0 = sum_q 2 pi f_q N_q + pi alpha_q N_q (N_q - 1)
          + sum_q 2 pi J (a_q^dag a_{q+1} + a_q a_{q+1}^dag)
@@ -56,6 +57,7 @@ def build(cfg: dict) -> Model:
             ),
             carrier_ghz=float(d["carrier_ghz"]),
             envelope_scale=float(d["envelope_scale"]),
+            envelope=d.get("envelope"),
         )
         for d in cfg["drives"]
     ]

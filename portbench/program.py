@@ -1,14 +1,20 @@
 """The system under test: the port's public ``Solver.solve_sweep``.
 
-This is the only module of the benchmark that imports the program
-(``qiskit_dynamics_tpu_torch``). It builds the port's ``Solver`` from a
-:class:`~portbench.model.Model`'s matrices and makes the call that the window
-drives:
+With ``portbench/programs/`` this is the only part of the benchmark that
+imports the program (``qiskit_dynamics_tpu_torch``). It builds the port's
+``Solver`` from a :class:`~portbench.model.Model`'s matrices and makes the
+call that the window drives:
 
 - ``"entry": "forward"``: ``solve_sweep`` under ``torch.no_grad()``;
 - ``"entry": "value_and_grad"``: ``solve_sweep`` on amplitudes that require
   grad, the loss ``mean(|y[:, loss_index]|^2)`` over the members, and
   ``torch.autograd.grad`` of it with respect to the amplitudes.
+
+A traffic mix that names ``"program": <name>`` is driven by
+``portbench/programs/<name>.py`` instead: its ``Program(model, traffic,
+device, span)`` makes the same call (most simply as a :class:`SweepCall`
+with its own ``_solve``), and an optional ``sweep_shape(model, traffic)``
+gives the sizes a work count reads.
 """
 from __future__ import annotations
 
@@ -17,6 +23,8 @@ import contextlib
 import torch
 
 from qiskit_dynamics_tpu_torch import Signal, Solver
+
+from .model import envelope
 
 
 def build_solver(model, device) -> Solver:
@@ -34,28 +42,27 @@ def build_solver(model, device) -> Solver:
 
 
 def signals_fn(model):
-    """One member's amplitude -> the solver's signals (constant envelopes)."""
-    drives = [(d.envelope_scale, d.carrier_ghz) for d in model.drives]
+    """One member's amplitude -> the solver's signals: the envelope
+    ``amp * envelope_scale``, times the drive's ``envelope(t)`` where it has
+    one."""
+    drives = [(d.envelope_scale, d.carrier_ghz,
+               None if d.envelope is None else envelope(d.envelope)) for d in model.drives]
 
     def signals(amp):
-        sigs = [Signal(lambda t, s=scale: amp * s, carrier_freq=carrier)
-                for scale, carrier in drives]
+        sigs = [Signal(lambda t, s=scale: amp * s, carrier_freq=carrier) if env is None else
+                Signal(lambda t, s=scale, e=env: amp * s * e(t), carrier_freq=carrier)
+                for scale, carrier, env in drives]
         return (sigs, None) if model.vectorized else sigs
 
     return signals
 
 
-class Program:
-    """The cell's call: ``call(amps) -> (y, grad or None)``, ``y`` the
-    (B, d) final frame states or (B, d, d) density matrices."""
+class SweepCall:
+    """The cell's call around a sweep ``_solve(amps) -> y``: ``call(amps) ->
+    (y, grad or None)``, ``y`` the (B, d) final frame states or (B, d, d)
+    density matrices."""
 
-    def __init__(self, model, traffic: dict, device, span=None):
-        self.solver = build_solver(model, device)
-        self.signals = signals_fn(model)
-        self.y0 = model.y0
-        self.t_span = (0.0, model.t_final)
-        self.method = traffic["method"]
-        self.options = dict(traffic.get("options", {}))
+    def __init__(self, traffic: dict, span=None):
         self.entry = traffic["entry"]
         self.loss_index = traffic.get("loss_index")
         self.span = span or (lambda name: contextlib.nullcontext())
@@ -64,8 +71,7 @@ class Program:
             raise ValueError(f"unknown entry {self.entry!r}")
 
     def _solve(self, amps):
-        return self.solver.solve_sweep(self.signals, amps, t_span=self.t_span, y0=self.y0,
-                                       method=self.method, **self.options)
+        raise NotImplementedError
 
     def call(self, amps):
         if self.entry == "forward":
@@ -82,3 +88,20 @@ class Program:
             if self.sync_spans:
                 torch.cuda.synchronize()
         return y.detach(), grad
+
+
+class Program(SweepCall):
+    """``Solver.solve_sweep`` with the traffic's ``method`` and ``options``."""
+
+    def __init__(self, model, traffic: dict, device, span=None):
+        super().__init__(traffic, span)
+        self.solver = build_solver(model, device)
+        self.signals = signals_fn(model)
+        self.y0 = model.y0
+        self.t_span = (0.0, model.t_final)
+        self.method = traffic["method"]
+        self.options = dict(traffic.get("options", {}))
+
+    def _solve(self, amps):
+        return self.solver.solve_sweep(self.signals, amps, t_span=self.t_span, y0=self.y0,
+                                       method=self.method, **self.options)

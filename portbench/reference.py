@@ -1,14 +1,15 @@
 """The plain reference of a sweep, and the control that computes it in TF32.
 
-Independent of the program: it imports NumPy and PyTorch only, and works out
-from a :class:`~portbench.model.Model`'s matrices the rotating frame, the
-rotating-wave approximation and, for a density matrix, the column-stacked
-Lindbladian. In the frame ``diag(lam)`` entry ``(p, q)`` of every generator
-turns with ``exp(i (lam_p - lam_q) t)``, and the drive ``Re[f exp(i nu t)] D``
-splits into ``f/2 exp(i nu t) D + conj(f)/2 exp(-i nu t) D``; the
-approximation keeps each part of an entry only where its frequency
-``|(+-nu + lam_p - lam_q) / 2 pi|`` lies below the cutoff (the static part
-with ``nu = 0``).
+Independent of the program: it imports NumPy and PyTorch only (and the
+benchmark's envelopes), and works out from a :class:`~portbench.model.Model`'s
+matrices the rotating frame, the rotating-wave approximation and, for a
+density matrix, the column-stacked Lindbladian. In the frame ``diag(lam)``
+entry ``(p, q)`` of every generator turns with ``exp(i (lam_p - lam_q) t)``,
+and the drive ``Re[f(t) exp(i nu t)] D`` splits into ``f(t)/2 exp(i nu t) D +
+conj(f(t))/2 exp(-i nu t) D``, ``f`` evaluated in float64 at the rule's node
+times; the approximation keeps each part of an entry only where its
+frequency ``|(+-nu + lam_p - lam_q) / 2 pi|`` lies below the cutoff (the
+static part with ``nu = 0``).
 
 The solve is a fixed-step Magnus rule, 2-point Gauss (4th order) or 3-point
 Gauss (6th order, Blanes, Casas and Ros 2009), with the exact step
@@ -29,6 +30,8 @@ import math
 
 import numpy as np
 import torch
+
+from .model import envelope
 
 TAYLOR_TERMS = 18
 TAYLOR_NORM = 0.5
@@ -106,6 +109,8 @@ class Problem:
         nus = [2 * np.pi * dr.carrier_ghz for dr in model.drives]
         self.nus = nus
         self.scales = [dr.envelope_scale for dr in model.drives]
+        self.envelopes = [None if dr.envelope is None else envelope(dr.envelope)
+                          for dr in model.drives]
         self.plus = [as_t(D * keep(nu + delta)) for D, nu in zip(drives, nus)]
         self.minus = [as_t(D * keep(-nu + delta)) for D, nu in zip(drives, nus)]
         y0 = np.asarray(model.y0, dtype=complex)
@@ -116,8 +121,11 @@ class Problem:
         phase = torch.exp(1j * self.delta * t[..., None, None])
         x = self.static * phase
         y = torch.zeros_like(x)
-        for nu, scale, plus, minus in zip(self.nus, self.scales, self.plus, self.minus):
+        for nu, scale, env, plus, minus in zip(self.nus, self.scales, self.envelopes, self.plus,
+                                               self.minus):
             carrier = torch.exp(1j * nu * t)[..., None, None]
+            if env is not None:  # the +nu part turns with env(t), the -nu part with its conjugate
+                carrier = carrier * env(t).to(torch.complex128)[..., None, None]
             y = y + (0.5 * scale) * (carrier * plus + carrier.conj() * minus)
         return x, y * phase
 

@@ -142,6 +142,28 @@ def test_the_gradient_cell_is_ready_by_entries_alone(tmp_path, traced):
 
 
 @pytest.mark.parametrize("traced", [False, True])
+def test_the_dysolve_cells_are_ready_by_files_and_entries_alone(tmp_path, traced):
+    """BASELINE config 4's configuration and cells, added to a copy as
+    files and entries with no other edit, load, run and report."""
+    from tiny import DYSON_ENTRIES, copy_with, run_tiny, tiny_cell
+
+    root = copy_with(tmp_path, DYSON_ENTRIES)
+    for entry in DYSON_ENTRIES["configs"] + DYSON_ENTRIES["workloads"]:
+        assert NAME.match(entry["name"]) and _one_line(entry["why"])
+    for entry in DYSON_ENTRIES["configs"]:
+        assert _one_line(entry["source"]) and (root / entry["file"]).is_file()
+    for cell in ("dyson_sweep", "magnus_sweep"):
+        c = spec.load_cell(cell, root)
+        assert {m.name for m in c.end_to_end} == {"sims_per_s", "setup_s"}
+        assert {m.name for m in c.per_layer} == {"launches_per_call.fwd", "device_idle_pct.fwd"}
+        assert model_mod.build(c.config).dim == c.config["solve_dim"]
+        result = run_tiny(tiny_cell(cell, root=root), traced=traced)
+        assert result["correct"], result["checks"]
+        # the CPU has no device trace to read
+        assert set(result["metrics"]) == (set() if traced else {"sims_per_s", "setup_s"})
+
+
+@pytest.mark.parametrize("traced", [False, True])
 def test_the_result_line_has_the_required_keys(traced):
     from tiny import run_tiny, tiny_cell
 
@@ -182,14 +204,17 @@ def test_run_fails_with_only_the_benchmark_files(tmp_path):
     assert out.returncode != 0 and out.stdout.strip() == ""
 
 
-def test_nothing_the_benchmark_loads_is_jax_or_the_jax_package():
+def test_nothing_the_benchmark_loads_is_jax_or_the_jax_package(tmp_path):
     code = (
-        "import sys, time, torch\n"
+        "import pathlib, sys, time, torch\n"
         f"sys.path.insert(0, {str(spec.ROOT)!r}); sys.path.insert(0, {str(spec.ROOT / 'portbench/tests')!r})\n"
         "import portbench.control, portbench.harness, portbench.program\n"
-        "from tiny import run_tiny, tiny_cell\n"
+        "import portbench.envelopes.gaussian, portbench.programs.perturbative_sweep\n"
+        "from tiny import DYSON_ENTRIES, copy_with, run_tiny, tiny_cell\n"
         "for cell in ('cr_fixed_sweep', 'cr_amp_sweep'):\n"
         "    run_tiny(tiny_cell(cell), traced=cell == 'cr_fixed_sweep')\n"
+        f"root = copy_with(pathlib.Path({str(tmp_path)!r}), DYSON_ENTRIES)\n"
+        "run_tiny(tiny_cell('magnus_sweep', root=root), traced=True)\n"
         "print(','.join(portbench.harness.forbidden_modules()))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
