@@ -121,13 +121,15 @@ raises and exits non-zero:
    ``solve_sweep`` over 2,048 Gaussian amplitudes in [0.2, 1.0] (sigma = T/6,
    centred at T/2), 1,000 steps, y0 = e_0; the chain kernel's launch counter
    must rise; members 0, 1,023 and 2,047 within 1e-5 in max | |y| - |ref| |
-   of the port's host DOP853 (atol = rtol = 1e-12) rotated into the frame;
-   sims/s from a steady block; then the gradient of ``sum(|y[:, 1]|^2) / B``
+   of the port's host DOP853 (atol = rtol = 1e-12) rotated into the frame
+   (the forward's rate is the benchmark cell ``dyson_sweep``'s, not timed
+   here); then the gradient of ``sum(|y[:, 1]|^2) / B``
    over 8 checkpointed chunks of 256: grad-sims/s, and at the probes the
    gradient within 1e-4 of max |g| of the complex128 plain route's autograd
    gradient (computed on the host).
 13. the Magnus row at full width: ``magnus_transmon_solver(device="cuda")``
-   (Magnus order 3, one squaring), the same sweep and bars: the expm kernel
+   (Magnus order 3, one squaring; the forward's rate: the cell
+   ``magnus_sweep``), the same sweep and bars: the expm kernel
    must launch once per call over 2,048,000 lanes and the chain kernel after
    it; in the gradient the expm backward kernel must launch 8 times over
    256,000 lanes. ``torch.linalg.matrix_exp`` is timed beside the expm
@@ -1549,8 +1551,10 @@ def perturbative_sweep(torch, Signal, solver, nu, amps):
 
 
 def phase_perturbative_row(torch, phase, name, make_solver, Signal, ca, bl, refs, ref_s):
-    """One row (Dyson or Magnus) at full width: forward, accuracy, gradient,
-    and its kernels alone at the shapes the row gave them."""
+    """One row (Dyson or Magnus) at full width: the forward's launches and
+    accuracy, the gradient, and its kernels alone at the shapes the row gave
+    them. The forward's rate is the benchmark's (cells ``dyson_sweep`` and
+    ``magnus_sweep``), not timed here."""
     solver, nu = make_solver(device="cuda")
     magnus = solver.model.expansion_method == "magnus"
     terms = len(solver.model.expansion_polynomial.monomial_labels)
@@ -1581,7 +1585,6 @@ def phase_perturbative_row(torch, phase, name, make_solver, Signal, ca, bl, refs
     got = out[probes].cpu().numpy()
     err = float(np.max(np.abs(np.abs(got) - np.abs(refs))))
     check(err <= PT_TOL, f"{name}_max_err {err:.2e} > {PT_TOL} against DOP853(1e-12)")
-    per_call, block_s, reps = steady_time(torch, sweep)
 
     # the kernels alone, at the shapes the row gave them
     props, y0_cols = chain_args
@@ -1597,7 +1600,6 @@ def phase_perturbative_row(torch, phase, name, make_solver, Signal, ca, bl, refs
         launches=fwd_counts[0], max_abs_err=chain_diff, ms=chain_ms, plain_ms=chain_plain_ms,
         bound_ms=chain_bound[0], bound_by=chain_bound[1]))
     del props, y0_cols, chain_args, chain_out, chain_plain
-    kernels_ms = chain_ms
     expm_text = ""
     if magnus:
         which, planes, order, squarings = expm_args
@@ -1624,7 +1626,6 @@ def phase_perturbative_row(torch, phase, name, make_solver, Signal, ca, bl, refs
             launches=fwd_counts[1], max_abs_err=expm_diff, ms=expm_ms, plain_ms=expm_plain_ms,
             bound_ms=expm_bound[0], bound_by=expm_bound[1], library_ms=library_ms,
             shape=dataclasses.asdict(expm_shape), warps_per_sm=expm_shape.warps_per_sm)
-        kernels_ms += expm_ms
         expm_text = (
             f"expm kernel {expm_ms:.3f} ms over {lanes} lanes (bound {expm_bound[0]:.3f} ms, "
             f"{expm_bound[1]}), plain {expm_plain_ms:.1f} ms, torch.linalg.matrix_exp "
@@ -1730,13 +1731,10 @@ def phase_perturbative_row(torch, phase, name, make_solver, Signal, ca, bl, refs
         del planes, bwd_args, bwd_out
     result["chain"]["launches"] += grad_counts[0]
     torch.cuda.empty_cache()
-    result.update(sims_per_s=PT_SWEEP / per_call, grad_sims_per_s=PT_SWEEP / grad_call,
-                  max_err=err, grad_err=grad_err)
+    result.update(grad_sims_per_s=PT_SWEEP / grad_call, max_err=err, grad_err=grad_err)
     print(
         f"phase {phase} {name} row: dim {PT_DIM}, {PT_SWEEP} members, {PT_STEPS} steps of "
-        f"{PT_DT}, {terms} monomials: {PT_SWEEP / per_call:.1f} sims/s ({reps} calls in "
-        f"{block_s:.2f} s, {per_call * 1e3:.2f} ms/call = kernels {kernels_ms:.3f} ms + "
-        f"coefficients, monomials, matmul and glue {per_call * 1e3 - kernels_ms:.2f} ms); chain "
+        f"{PT_DT}, {terms} monomials (the forward's rate: the benchmark's {name}_sweep); chain "
         f"kernel {chain_ms:.3f} ms (bound {chain_bound[0]:.3f} ms, {chain_bound[1]}), plain "
         f"{chain_plain_ms:.1f} ms, bitwise equal; {expm_text}{name}_max_err {err:.2e} "
         f"(<= {PT_TOL}, {len(probes)} probes vs DOP853 1e-12 at {ref_s:.2f} s/sim; vs the "
@@ -2642,7 +2640,6 @@ def main() -> int:
         "replaces": "qiskit_dynamics_tpu/ops/chain_apply.py:28",
         **dyson["chain"],
         "library_ms": None,
-        "dyson_sims_per_s": dyson["sims_per_s"],
         "dyson_grad_sims_per_s": dyson["grad_sims_per_s"],
         "dyson_max_err": dyson["max_err"],
         "magnus_row": magnus["chain"],
@@ -2655,7 +2652,6 @@ def main() -> int:
         "source": "qiskit_dynamics_tpu_torch/csrc/batched_linalg.cu",
         "replaces": "qiskit_dynamics_tpu/ops/batched_linalg.py:99",
         **magnus["expm"],
-        "magnus_sims_per_s": magnus["sims_per_s"],
         "magnus_grad_sims_per_s": magnus["grad_sims_per_s"],
         "magnus_max_err": magnus["max_err"],
         "complex128": {**magnus_df["expm"], "magnus_df_sims_per_s": magnus_df["sims_per_s"],

@@ -13,6 +13,14 @@ the streamed propagator chain, and for Magnus the batched Taylor ``expm``;
 with ``precision="df32"`` in complex128, native FP64 in place of the JAX
 package's double-float32 Dysolve (``ops/df_chain.py``, whose term split and
 kernel cache are not carried).
+
+``solve_sweep`` records the sweep path's spans (``utils/metrics.py``):
+``sweep.call`` (attrs ``method``, ``engine="perturbative"``, ``members``)
+around ``sweep.tables`` (the Chebyshev coefficients), ``sweep.prepare`` (the
+frame maps, ``y0`` and the expansion on the device), one ``sweep.engine`` per
+pass over a chunk of members (attrs ``method``, ``n``, ``monomials``,
+``lanes``) and ``sweep.collect``; and the host counters ``pert.step_lanes``
+(steps x members) and ``pert.monomials`` (the expansion's terms) per pass.
 """
 from __future__ import annotations
 
@@ -31,6 +39,8 @@ from ...ops.chain_apply import chain_apply_bol_ad
 from ...parallel.scan import propagator_scan
 from ...signals import SignalList
 from ...unified import is_tensor, to_numpy, to_tensor
+from ...utils import metrics
+from ...utils.metrics import annotate_call, count, span
 from ..fused_sweep import _leaves, _tree_map
 from ..results import OdeResult
 from ..solver_utils import setup_args_lists
@@ -89,6 +99,16 @@ def _frame_ends(model, t0, n_steps):
 
 def _real_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.float32 if dtype == torch.complex64 else torch.float64
+
+
+def _call_span(method: str, members: int):
+    """The ``sweep.call`` span of one ``solve_sweep``; where the caller has a
+    ``sweep.call`` open already, none: the stages join the caller's call,
+    which takes the engine and member count as attrs."""
+    if metrics.recording() and any(s.name == "sweep.call" for s in metrics._REC.stack()):
+        annotate_call(engine="perturbative", members=members)
+        return contextlib.nullcontext()
+    return span("sweep.call", method=method, engine="perturbative", members=members)
 
 
 def _perturbative_solve(single_step: Callable, model, signals, y0, t0, n_steps):
@@ -303,66 +323,90 @@ class _PerturbativeSolver(ABC):
             cdtype = torch.complex64 if device.type == "cuda" else model.dtype
 
         params = _tree_map(lambda x: to_tensor(x, device=device), params)
-        coeffs = torch.func.vmap(
-            lambda p: model.approximate_signals(signals_fn(p), t0, n_steps)
-        )(params)                                            # (B, n_vars, T), float64
-        coeffs = torch.movedim(coeffs, 0, -1).to(_real_dtype(cdtype))  # (n_vars, T, B)
-        B = coeffs.shape[2]
+        with _call_span(model.expansion_method, int(next(_leaves(params)).shape[0])):
+            with span("sweep.tables"):
+                coeffs = torch.func.vmap(
+                    lambda p: model.approximate_signals(signals_fn(p), t0, n_steps)
+                )(params)                                    # (B, n_vars, T), float64
+                coeffs = torch.movedim(coeffs, 0, -1).to(_real_dtype(cdtype))  # (n_vars, T, B)
+            B = coeffs.shape[2]
 
-        # the frame maps come from the frame in complex128 and are cast last
-        U0, Uf = _frame_ends(model, t0, n_steps)
-        y0_frame = torch.as_tensor(U0 @ to_numpy(y0).astype(complex), device=device).to(cdtype)
-        Uf = torch.as_tensor(Uf, device=device).to(cdtype)
-        chunk = df_chunk_b if precision == "df32" else B
-        with torch.no_grad() if precision == "df32" else contextlib.nullcontext():
-            return torch.cat([
-                (Uf @ self._sweep_chain(coeffs[:, :, b0:b0 + chunk], y0_frame, cdtype,
-                                        expm_squarings)).T
-                for b0 in range(0, B, chunk)
-            ])
+            with span("sweep.prepare"):
+                # the frame maps come from the frame in complex128 and are cast last
+                U0, Uf = _frame_ends(model, t0, n_steps)
+                y0_frame = torch.as_tensor(
+                    U0 @ to_numpy(y0).astype(complex), device=device).to(cdtype)
+                Uf = torch.as_tensor(Uf, device=device).to(cdtype)
+                expansion = self._sweep_expansion(cdtype)
+            chunk = df_chunk_b if precision == "df32" else B
+            with torch.no_grad() if precision == "df32" else contextlib.nullcontext():
+                finals = [
+                    self._sweep_chain(coeffs[:, :, b0:b0 + chunk], y0_frame, expansion,
+                                      expm_squarings)
+                    for b0 in range(0, B, chunk)
+                ]
+                with span("sweep.collect"):
+                    return torch.cat([(Uf @ final).T for final in finals])
 
-    def _sweep_chain(self, coeffs, y0_frame, cdtype, expm_squarings: int):
-        """The frame-basis final states (dim, B) of the members of ``coeffs``
-        (n_vars, T, B): the monomial table, one real product, the per-step
-        ``expm`` for Magnus, the streamed chain."""
+    def _sweep_expansion(self, cdtype):
+        """The expansion on the model's device for :meth:`_sweep_chain`: the
+        complex coefficients as ONE real (2 n^2, M) matrix, rows the real
+        plane then the imaginary plane; the constant term as the product's
+        (2 n^2, 1) starting value (None without one); Magnus's ``Udt`` in
+        ``cdtype`` (None for Dyson)."""
         model = self.model
-        poly = model.expansion_polynomial
         device = model.device
         dim = model.Udt.shape[0]
-        T_steps, B = coeffs.shape[1], coeffs.shape[2]
-
-        monomials = poly.compute_monomials(coeffs)           # (M, T, B)
-        array_coeffs, constant = poly.tensors(device, cdtype)
+        array_coeffs, constant = model.expansion_polynomial.tensors(device, cdtype)
         n_terms = array_coeffs.shape[0]
-        # the complex coefficients against the real monomials as ONE real
-        # product: rows are the real plane then the imaginary plane; the
-        # constant term is the product's starting value
         planes = torch.view_as_real(array_coeffs.reshape(n_terms, dim * dim))
         planes = planes.permute(2, 1, 0).reshape(2 * dim * dim, n_terms)
-        monomials = monomials.reshape(n_terms, T_steps * B)
-        if constant is None:
-            lanes = planes @ monomials
-        else:
+        start = None
+        if constant is not None:
             start = torch.view_as_real(constant.reshape(dim * dim)).T.reshape(-1, 1)
-            lanes = torch.addmm(start, planes, monomials)
-        del monomials
-        lanes = lanes.reshape(2, dim, dim, T_steps * B)
-
+        Udt = None
         if model.expansion_method == "magnus":
-            # per-step propagator = Udt @ expm(polynomial), exponentiated over
-            # the flattened (T * B) lanes, kernel forward and kernel backward
-            exp_r, exp_i = expm_taylor_bol_ad(
-                lanes[0], lanes[1], _MAGNUS_EXPM_ORDER, expm_squarings
-            )
-            del lanes
             Udt = torch.as_tensor(model.Udt, device=device).to(cdtype)
-            props = (Udt @ torch.complex(exp_r, exp_i).reshape(dim, -1)).reshape(
-                dim, dim, T_steps, B
-            )
-        else:
-            props = torch.complex(lanes[0], lanes[1]).reshape(dim, dim, T_steps, B)
-        props = torch.movedim(props, 2, 0)                   # (T, n, n, B), a view
-        return chain_apply_bol_ad(props, y0_frame[:, None].expand(dim, B))
+        return planes, start, Udt
+
+    def _sweep_chain(self, coeffs, y0_frame, expansion, expm_squarings: int):
+        """The frame-basis final states (dim, B) of the members of ``coeffs``
+        (n_vars, T, B): the monomial table, one real product against the
+        ``expansion`` of :meth:`_sweep_expansion`, the per-step ``expm`` for
+        Magnus, the streamed chain."""
+        model = self.model
+        planes, start, Udt = expansion
+        dim = model.Udt.shape[0]
+        n_terms = planes.shape[1]
+        T_steps, B = coeffs.shape[1], coeffs.shape[2]
+        method = model.expansion_method
+        count("pert.step_lanes", T_steps * B)
+        count("pert.monomials", n_terms)
+        with span("sweep.engine", method=method, n=dim, monomials=n_terms,
+                  lanes=T_steps * B):
+            monomials = model.expansion_polynomial.compute_monomials(coeffs)  # (M, T, B)
+            monomials = monomials.reshape(n_terms, T_steps * B)
+            if start is None:
+                lanes = planes @ monomials
+            else:
+                lanes = torch.addmm(start, planes, monomials)
+            del monomials
+            lanes = lanes.reshape(2, dim, dim, T_steps * B)
+
+            if method == "magnus":
+                # per-step propagator = Udt @ expm(polynomial), exponentiated over
+                # the flattened (T * B) lanes, kernel forward and kernel backward
+                exp_r, exp_i = expm_taylor_bol_ad(
+                    lanes[0], lanes[1], _MAGNUS_EXPM_ORDER, expm_squarings
+                )
+                del lanes
+                props = (Udt @ torch.complex(exp_r, exp_i).reshape(dim, -1)).reshape(
+                    dim, dim, T_steps, B
+                )
+            else:
+                props = torch.complex(lanes[0], lanes[1]).reshape(dim, dim, T_steps, B)
+            props = torch.movedim(props, 2, 0)               # (T, n, n, B), a view
+            return chain_apply_bol_ad(props, y0_frame[:, None].expand(dim, B))
 
 
 class DysonSolver(_PerturbativeSolver):

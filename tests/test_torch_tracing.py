@@ -6,9 +6,11 @@ twin, on kernel B2's plain version and on the polynomial engine; nothing
 recorded and no profiler range entered while the switch is off; each span in
 a ``torch.profiler`` Chrome trace at its converted start; the twin's step
 counters against its step record and step budget; the polynomial
-expansion's cache counters; the readers ``glue_host_ms.fwd``,
-``accepted_step_share`` and ``adaptive_roofline_pct`` on tiny CPU runs of
-the benchmark's cells.
+expansion's cache counters; the perturbative ``DysonSolver`` and
+``MagnusSolver.solve_sweep``: their span tree and counters, nothing recorded
+when off, the same outputs on and off, one call under a caller's open
+``sweep.call``; the readers ``glue_host_ms.fwd``, ``accepted_step_share``
+and ``adaptive_roofline_pct`` on tiny CPU runs of the benchmark's cells.
 
 Card tests (marked ``cuda``; skipped without a card): kernel B1's device
 counters against its per-tile ``steps_out`` and its step record, the same
@@ -246,6 +248,109 @@ def test_expansion_cache_hits_and_misses(clean):
     assert torch.equal(first, second)
 
 
+# --- the perturbative solve_sweep ---------------------------------------------
+PERT_STEPS, PERT_AMPS = 8, torch.tensor([0.3, 0.55, 0.8, 1.0], dtype=torch.float64)
+PERT_STAGES = {"sweep.tables", "sweep.prepare", "sweep.engine", "sweep.collect"}
+
+
+@pytest.fixture(scope="module")
+def pert():
+    """Dyson and Magnus solvers of a 3-level transmon (expansion order 2) on
+    the CPU, with a Gaussian drive over the 8 steps of 0.1."""
+    from qiskit_dynamics_tpu_torch.benchmarks import (dyson_transmon_solver,
+                                                      magnus_transmon_solver)
+
+    out = {}
+    for method, make in (("dyson", dyson_transmon_solver), ("magnus", magnus_transmon_solver)):
+        solver, nu = make(dim=3, expansion_order=2, device="cpu")
+        out[method] = (solver, lambda a, nu=nu: [Signal(
+            lambda t: a * torch.exp(-((t - 0.4) ** 2) / (2 * 0.13**2)), carrier_freq=nu)])
+    return out
+
+
+def _pert_solve(pert, method, **kwargs):
+    solver, fn = pert[method]
+    y0 = np.eye(3, dtype=complex)[0]
+    return solver.solve_sweep(0.0, PERT_STEPS, y0, fn, PERT_AMPS, **kwargs)
+
+
+@pytest.mark.parametrize("precision", ["f32", "df32"])
+@pytest.mark.parametrize("method", ["dyson", "magnus"])
+def test_perturbative_span_tree_and_counters(pert, clean, method, precision):
+    """One ``sweep.call`` with its four stages under one call id; one
+    ``sweep.engine`` per pass (df32 in chunks of 3 members: two passes), its
+    attrs and the counters the lanes and terms of each pass."""
+    metrics.enable_metrics()
+    _pert_solve(pert, method, precision=precision, df_chunk_b=3)
+    records = metrics.span_records()
+    (root,) = [r for r in records if r.parent is None]
+    assert root.name == "sweep.call"
+    assert root.attrs == dict(method=method, engine="perturbative", members=4)
+    assert {r.call for r in records} == {root.id}
+    children = [r for r in records if r is not root]
+    assert {r.name for r in children} == PERT_STAGES
+    assert all(r.parent == root.id for r in children)
+    assert all(root.start_ns <= r.start_ns <= r.end_ns <= root.end_ns for r in children)
+    terms = len(pert[method][0].model.expansion_polynomial.monomial_labels)
+    assert terms == 14  # the multisets of 1 or 2 of the 4 Chebyshev variables
+    passes = [r for r in children if r.name == "sweep.engine"]
+    members = [3, 1] if precision == "df32" else [4]
+    assert [r.attrs for r in passes] == [dict(method=method, n=3, monomials=terms,
+                                              lanes=PERT_STEPS * b) for b in members]
+    assert [r.name for r in children if r.name != "sweep.engine"] == [
+        "sweep.tables", "sweep.prepare", "sweep.collect"]
+    assert metrics.counters() == {"pert.step_lanes": PERT_STEPS * 4,
+                                  "pert.monomials": terms * len(members)}
+
+
+@pytest.mark.parametrize("method", ["dyson", "magnus"])
+def test_perturbative_off_records_nothing_and_outputs_match(pert, clean, monkeypatch, method):
+    """Recording changes nothing the sweep returns: the same bits off, under
+    ``enable_metrics()`` and under a profiler; off, no record, no counter and
+    no profiler range."""
+    grads = []
+    with monkeypatch.context() as patch:
+        def refuse(*args, **kwargs):
+            raise AssertionError("record_function entered with metrics off")
+
+        patch.setattr(torch.profiler, "record_function", refuse)
+        off = _pert_solve(pert, method)
+        amps = PERT_AMPS.clone().requires_grad_(True)
+        solver, fn = pert[method]
+        y = solver.solve_sweep(0.0, PERT_STEPS, np.eye(3, dtype=complex)[0], fn, amps)
+        grads.append(torch.autograd.grad(y[:, 1].abs().pow(2).sum(), amps)[0])
+    assert metrics.span_records() == [] and not [
+        name for name in metrics.counters() if not name.startswith("kernel.")]
+    metrics.enable_metrics()
+    on = _pert_solve(pert, method)
+    amps = PERT_AMPS.clone().requires_grad_(True)
+    y = solver.solve_sweep(0.0, PERT_STEPS, np.eye(3, dtype=complex)[0], fn, amps)
+    grads.append(torch.autograd.grad(y[:, 1].abs().pow(2).sum(), amps)[0])
+    metrics.disable_metrics()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        traced = _pert_solve(pert, method)
+    assert torch.equal(off, on) and torch.equal(off, traced)
+    assert torch.equal(grads[0], grads[1])
+    roots = [r.name for r in metrics.span_records() if r.parent is None]
+    assert roots == ["sweep.call"] * 3
+
+
+def test_perturbative_call_joins_an_open_sweep_call(pert, clean):
+    """Reached from a caller that opened ``sweep.call``, the sweep opens no
+    second one: its stages join the caller's call, which takes the engine
+    and the member count."""
+    metrics.enable_metrics()
+    with metrics.span("sweep.call", method="caller"):
+        _pert_solve(pert, "magnus")
+    records = metrics.span_records()
+    calls = [r for r in records if r.name == "sweep.call"]
+    assert len(calls) == 1 and calls[0].parent is None
+    assert calls[0].attrs == dict(method="caller", engine="perturbative", members=4)
+    stages = [r for r in records if r is not calls[0]]
+    assert {r.name for r in stages} == PERT_STAGES
+    assert all(r.parent == calls[0].id for r in stages)
+
+
 def test_solve_span_keeps_its_records(clean):
     with metrics.solve_span("solve_ode[RK4]", method="RK4"):
         pass
@@ -260,7 +365,8 @@ def test_solve_span_keeps_its_records(clean):
 
 
 # --- the benchmark's readers ------------------------------------------------
-@pytest.mark.parametrize("cell", ["cr_amp_sweep", "cr_fixed_sweep", "cr_pair_open_sweep"])
+@pytest.mark.parametrize("cell", ["cr_amp_sweep", "cr_fixed_sweep", "cr_pair_open_sweep",
+                                  "dyson_sweep", "magnus_sweep"])
 def test_readers_on_a_tiny_traced_run(clean, cell):
     result = run_tiny(tiny_cell(cell), traced=True)
     assert result["correct"]
@@ -278,8 +384,15 @@ def test_readers_on_a_tiny_traced_run(clean, cell):
         assert 0 < share <= 100
     else:
         assert "accepted_step_share" not in got
-    # a CPU run has no device busy time: no roofline share
-    assert "adaptive_roofline_pct" not in got
+    if cell in ("dyson_sweep", "magnus_sweep"):
+        c = tiny_cell(cell)
+        steps = round(c.config["t_final"] / c.traffic["options"]["dt"])
+        counts = metrics.counters()
+        assert counts["pert.step_lanes"] == calls * steps * c.traffic["members"]
+        assert counts["pert.monomials"] == calls * (209 if cell == "dyson_sweep" else 34)
+    # a CPU run has no device busy time and no kernel in its trace: no
+    # roofline share
+    assert not [name for name in got if "roofline" in name]
 
 
 def test_untraced_run_reads_no_spans(clean):
