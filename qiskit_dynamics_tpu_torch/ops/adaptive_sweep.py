@@ -35,6 +35,7 @@ for CPU tensors.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from dataclasses import dataclass
 from typing import Optional
 
@@ -51,7 +52,8 @@ from .rk_tableaus import (
     DOPRI5_N_STAGES as _N_STAGES,
 )
 
-__all__ = ["sweep_dopri5_lockstep", "sweep_dopri5_lockstep_plain", "prepare_inputs"]
+__all__ = ["sweep_dopri5_lockstep", "sweep_dopri5_lockstep_plain", "prepare_inputs",
+           "prepare_static_inputs", "with_envelopes"]
 
 MAX_N = 64  # the kernel's compiled cap on the state dimension
 MAX_SHARED_BYTES = 232448  # dynamic shared memory a block may use on Hopper
@@ -69,8 +71,8 @@ class SweepInputs:
     opsi: torch.Tensor
     omega: torch.Tensor  # (n, n) f64
     freqs: torch.Tensor  # (k,) f64 angular carriers
-    envr: torch.Tensor  # (k, S, B) f32
-    envi: torch.Tensor
+    envr: Optional[torch.Tensor]  # (k, S, B) f32 (None: see prepare_static_inputs)
+    envi: Optional[torch.Tensor]
     y0r: torch.Tensor  # (n, B) f32
     y0i: torch.Tensor
     eval_ts: Optional[torch.Tensor]  # (n_eval,) f64 elapsed times
@@ -119,6 +121,33 @@ def prepare_inputs(
     """Validate the arguments of :func:`sweep_dopri5_lockstep` and convert
     them to kernel-ready planes on the device of ``y0`` (the CUDA device
     when ``y0`` is not a tensor)."""
+    amps = to_tensor(signal_amps)
+    inputs = prepare_static_inputs(
+        static_op, operators, frame_omega, signal_freqs, y0, tf, t0=t0, atol=atol, rtol=rtol,
+        max_steps=max_steps, h0=h0, tile_b=tile_b, env_dt=env_dt, eval_ts=eval_ts,
+        table=amps.ndim == 3,
+    )
+    return with_envelopes(inputs, amps)
+
+
+def with_envelopes(inputs: SweepInputs, signal_amps) -> SweepInputs:
+    """``inputs`` with the envelope planes of ``signal_amps``, (k, B) or
+    (k, S, B), on their device: device work alone, no readback or upload
+    for amplitudes already there."""
+    amps = to_tensor(signal_amps, device=inputs.y0r.device)
+    if amps.ndim == 2:
+        amps = amps[:, None, :]
+    envr, envi = _planes(amps, inputs.y0r.device)
+    return dataclasses.replace(inputs, envr=envr, envi=envi)
+
+
+def prepare_static_inputs(
+    static_op, operators, frame_omega, signal_freqs, y0, tf, t0=0.0, atol=1e-6, rtol=1e-6,
+    max_steps=4096, h0=1e-2, tile_b=512, env_dt=0.0, eval_ts=None, table=False,
+) -> SweepInputs:
+    """:func:`prepare_inputs` without the amplitudes (``envr``/``envi``
+    None until :func:`with_envelopes`): every plane that does not change
+    with them. ``table``: the amplitudes will be (k, S, B) envelope tables."""
     device = y0.device if isinstance(y0, torch.Tensor) else default_device()
     statr, stati = _planes(static_op, device)
     opsr, opsi = _planes(operators, device)
@@ -127,13 +156,10 @@ def prepare_inputs(
     B = y0r.shape[-1]
     if B % tile_b != 0:
         raise ValueError(f"sweep batch {B} must be a multiple of tile_b={tile_b}")
-    amps = to_tensor(signal_amps, device=device)
-    if amps.ndim == 2:
-        amps = amps[:, None, :]
+    if not table:
         env_dt = float(tf - t0)  # any positive value; index is always 0
     elif env_dt <= 0.0:
         raise ValueError("env_dt must be set when passing (k, S, B) envelope tables.")
-    envr, envi = _planes(amps, device)
 
     ts = None
     if eval_ts is not None:
@@ -151,7 +177,7 @@ def prepare_inputs(
         statr=statr, stati=stati, opsr=opsr, opsi=opsi,
         omega=to_tensor(frame_omega, **f64).reshape(n, n).contiguous(),
         freqs=to_tensor(signal_freqs, **f64).reshape(k).contiguous(),
-        envr=envr, envi=envi, y0r=y0r, y0i=y0i, eval_ts=ts,
+        envr=None, envi=None, y0r=y0r, y0i=y0i, eval_ts=ts,
         t0=float(t0), dur=float(tf) - float(t0), env_dt=float(env_dt),
         atol=float(atol), rtol=float(rtol), max_steps=int(max_steps), h0=float(h0),
         tile_b=int(tile_b),
@@ -405,7 +431,9 @@ def _launch_kernel(inputs: SweepInputs, record_steps: bool, shape: Optional[Laun
     outi = torch.empty_like(outr)
     evalr = torch.zeros((n_eval, n, B), dtype=torch.float32, device=device)
     evali = torch.zeros_like(evalr)
-    rec = torch.zeros((n_tiles, inputs.max_steps), dtype=torch.float64, device=device)
+    rec = None
+    if record_steps:
+        rec = torch.zeros((n_tiles, inputs.max_steps), dtype=torch.float64, device=device)
     scratch = None
     if shape.members_per_group > 1:
         scratch = torch.empty(
@@ -424,7 +452,7 @@ def _launch_kernel(inputs: SweepInputs, record_steps: bool, shape: Optional[Laun
             ptr(inputs.statr), ptr(inputs.stati), ptr(inputs.opsr), ptr(inputs.opsi),
             ptr(inputs.omega), ptr(inputs.freqs), ptr(inputs.envr), ptr(inputs.envi),
             ptr(inputs.eval_ts), ptr(inputs.y0r), ptr(inputs.y0i), ptr(outr), ptr(outi),
-            ptr(evalr), ptr(evali), ptr(rec) if record_steps else None, ptr(scratch),
+            ptr(evalr), ptr(evali), ptr(rec), ptr(scratch),
             ptr(steps_out), ptr(clocks), ptr(step_counts), n, k, inputs.n_env, n_eval, B,
             tile_b, inputs.max_steps, int(record_steps),
             inputs.t0, inputs.dur, inputs.env_dt, inputs.atol, inputs.rtol, inputs.h0,
@@ -440,7 +468,7 @@ def _launch_kernel(inputs: SweepInputs, record_steps: bool, shape: Optional[Laun
     sweep_dopri5_lockstep.launches += 1
     final = torch.complex(outr, outi)
     traj = torch.complex(evalr, evali) if n_eval else None
-    return final, traj, rec if record_steps else None
+    return final, traj, rec
 
 
 # ---------------------------------------------------------------------------

@@ -113,11 +113,21 @@ class Signal:
         """Vectorized envelope evaluation."""
         return self._envelope(t)
 
-    def complex_value(self, t) -> torch.Tensor:
-        """Vectorized evaluation of ``f(t) exp(i(2 pi nu t + phi))``."""
+    def carrier_factor(self, t) -> torch.Tensor:
+        """Vectorized evaluation of the carrier ``exp(i(2 pi nu t + phi))``."""
         t = _time(t)
         arg = _TWO_PI * self._carrier_freq.to(t.device) * t + self._phase.to(t.device)
-        return _like(self.envelope(t), t) * torch.exp(1j * arg)
+        return torch.exp(1j * arg)
+
+    def modulate(self, t, factor: torch.Tensor) -> torch.Tensor:
+        """The complex value at ``t`` given the carrier ``factor`` there
+        (:meth:`carrier_factor`): ``f(t) * factor``."""
+        t = _time(t)
+        return _like(self.envelope(t), t) * factor
+
+    def complex_value(self, t) -> torch.Tensor:
+        """Vectorized evaluation of ``f(t) exp(i(2 pi nu t + phi))``."""
+        return self.modulate(t, self.carrier_factor(t))
 
     def __call__(self, t) -> torch.Tensor:
         """Vectorized evaluation of the real signal."""
@@ -206,11 +216,16 @@ class SignalSum(SignalCollection, Signal):
         t = _time(t)
         return _stack_last([_like(sig.envelope(t), t) for sig in self._components])
 
-    def complex_value(self, t) -> torch.Tensor:
+    def carrier_factor(self, t) -> torch.Tensor:
+        """The components' carriers at ``t``, stacked on a last axis."""
         t = _time(t)
         freq = self._carrier_freq.to(t.device)
         arg = _TWO_PI * t.unsqueeze(-1) * freq + self._phase.to(t.device)
-        return torch.sum(self.envelope(t) * torch.exp(1j * arg), dim=-1)
+        return torch.exp(1j * arg)
+
+    def modulate(self, t, factor: torch.Tensor) -> torch.Tensor:
+        t = _time(t)
+        return torch.sum(self.envelope(t) * factor, dim=-1)
 
     def flatten(self) -> Signal:
         """Merge into a single ``Signal`` carried at the average frequency."""

@@ -22,7 +22,8 @@ basis.
   arbitrary times; the JAX package's double-float32 engine exists because the
   TPU has no FP64.
 - ``fused_adaptive_sweep_solve``: lockstep-adaptive dopri5 through kernel B1
-  (:mod:`~qiskit_dynamics_tpu_torch.ops.adaptive_sweep`), Hamiltonian models.
+  (:mod:`~qiskit_dynamics_tpu_torch.ops.adaptive_sweep`), Hamiltonian models;
+  on the card its device work is one CUDA graph per call shape, replayed.
 
 Not yet ported (``ROADMAP.md``): the gradient of the adaptive solve (A5),
 ``mesh=`` and ``df_devices=`` (A13), and the adaptive solve on Lindblad
@@ -35,7 +36,10 @@ pass on the device here.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
 import warnings
+from collections import OrderedDict
 from typing import Callable, Optional
 
 import numpy as np
@@ -45,8 +49,9 @@ from ..exceptions import DynamicsError
 from ..models import GeneratorModel, LindbladModel
 from ..models.operator_collections import OperatorCollection, VectorizedLindbladCollection
 from ..ops.sweep_solver import gauss_nodes
-from ..signals import SignalList
+from ..signals import Signal, SignalList
 from ..unified import is_tensor, to_numpy, to_tensor
+from ..utils import metrics
 from ..utils.metrics import annotate_call, span
 from .fixed_step_solvers import get_fixed_step_sizes
 
@@ -75,9 +80,7 @@ def _extract_generator_data(model, t_span, fn_name: str):
     else:
         raise DynamicsError(f"{fn_name} takes a GeneratorModel or a LindbladModel.")
 
-    t0, tf = float(t_span[0]), float(t_span[-1])
-    if tf <= t0:
-        raise DynamicsError(f"{fn_name} requires t_span[1] > t_span[0].")
+    t0, tf = _time_span(t_span, fn_name)
 
     solve_dim = model.dim**2 if vectorized_lindblad else model.dim
     static_fb = inner.static_operator
@@ -96,6 +99,13 @@ def _extract_generator_data(model, t_span, fn_name: str):
             w = (w[None, :] - w[:, None]).reshape(-1)
         omega = w[None, :] - w[:, None]
     return vectorized_lindblad, solve_dim, static_fb, ops_fb, omega, t0, tf
+
+
+def _time_span(t_span, fn_name: str):
+    t0, tf = float(t_span[0]), float(t_span[-1])
+    if tf <= t0:
+        raise DynamicsError(f"{fn_name} requires t_span[1] > t_span[0].")
+    return t0, tf
 
 
 def _all_anti_hermitian(model) -> bool:
@@ -713,9 +723,22 @@ def fused_adaptive_sweep_solve(
     Returns:
         (B, dim) complex final states at ``t_span[1]`` (standard basis), or
         (B, dim, m) for a 2d ``y0``; with ``t_eval``, ``(B, n_eval, dim[, m])``.
-    """
-    from ..ops.adaptive_sweep import sweep_dopri5_lockstep
 
+    On the card, the device work of a call (tables, bucketing, lanes, the
+    kernel, the collector) is one CUDA graph per call shape, captured at the
+    first call and replayed by the next ones that share its key
+    (:func:`_graph_key`: ``signals_fn`` and the map by identity, the shapes
+    of ``params``, the model's tensors by identity and version, the options,
+    the carriers and phases); every call still reads members 0 and -1 back
+    and checks their signals on the host, and a carrier or phase other than
+    the graph's is a new capture. The graph bakes in every other value that
+    ``signals_fn`` closes over and does not take from ``params``, such as a
+    Python number or host tensor inside an envelope: as under the JAX
+    package's ``jit``, a change of such a value is not seen (pass it in
+    ``params``). The graph is not taken for carriers or phases that are not
+    host constants, or for a chain whose capture raises (one that
+    synchronizes).
+    """
     if mesh is not None:
         raise NotImplementedError(
             "fused_adaptive_sweep_solve(mesh=...) waits for ROADMAP A13 (multi-device, "
@@ -732,14 +755,14 @@ def fused_adaptive_sweep_solve(
             "only spend steps on roundoff-dominated error estimates.",
             stacklevel=2,
         )
+    options = dict(atol=atol, rtol=rtol, max_steps=max_steps, h0=h0, tile_b=tile_b,
+                   rwa_signal_map=rwa_signal_map, envelope_resolution=envelope_resolution,
+                   bucket_lanes=bucket_lanes, t_eval=t_eval)
     with torch.no_grad():
-        args, kwargs, collect = sweep_arguments(
-            model, signals_fn, params, t_span, y0, atol=atol, rtol=rtol,
-            max_steps=max_steps, h0=h0, tile_b=tile_b, rwa_signal_map=rwa_signal_map,
-            envelope_resolution=envelope_resolution, bucket_lanes=bucket_lanes,
-            t_eval=t_eval,
-        )
-        return collect(sweep_dopri5_lockstep(*args, **kwargs))
+        if model.device.type == "cuda" and _dense_generator(model):
+            return _graph_solve(model, signals_fn, params, t_span, y0, options)
+        return _solve_eagerly(_AdaptivePlan(model, signals_fn, params, t_span, y0, **options),
+                              params)
 
 
 def sweep_arguments(
@@ -754,137 +777,444 @@ def sweep_arguments(
     and the function that maps the kernel's output back to
     ``(B, dim[, m])`` / ``(B, n_eval, dim[, m])`` in member order.
     """
-    vectorized_lindblad, solve_dim, static_fb, ops_fb, omega, t0, tf = _extract_generator_data(
-        model, t_span, "fused_adaptive_sweep_solve"
+    plan = _AdaptivePlan(
+        model, signals_fn, params, t_span, y0, atol=atol, rtol=rtol, max_steps=max_steps, h0=h0,
+        tile_b=tile_b, rwa_signal_map=rwa_signal_map, envelope_resolution=envelope_resolution,
+        bucket_lanes=bucket_lanes, t_eval=t_eval,
     )
-    if vectorized_lindblad:
-        raise NotImplementedError(
-            "fused_adaptive_sweep_solve on a vectorized LindbladModel is still to be ported "
-            "(ROADMAP A7, left over); use fused_sweep_solve."
-        )
-    k = ops_fb.shape[0]
+    return plan.arguments(params)
 
+
+def _solve_eagerly(plan, params):
+    from ..ops.adaptive_sweep import sweep_dopri5_lockstep
+
+    args, kwargs, collect = plan.arguments(params)
+    return collect(sweep_dopri5_lockstep(*args, **kwargs))
+
+
+def _dense_generator(model) -> bool:
+    """Whether ``model`` is a dense generator model (not a Lindblad one):
+    the models the adaptive sweep takes."""
+    return (isinstance(model, GeneratorModel)
+            and isinstance(model._operator_collection, OperatorCollection)
+            and model._operator_collection.operators is not None)
+
+
+def _flat_signals(signals_fn, rwa_signal_map):
     def flat_signals(p):
         sigs = signals_fn(p)
         if rwa_signal_map is not None:
             sigs = rwa_signal_map(sigs)
         return list(sigs)
 
-    # the (shared) carrier of every signal, from member-0 and member-(-1)
-    # probes; a mapped signal may be a SignalSum whose terms share one carrier
-    def probe_carriers(member_params):
-        sigs = flat_signals(member_params)
+    return flat_signals
+
+
+def _member_ends(params):
+    """Members 0 and -1 of ``params`` on the host: one readback a leaf."""
+    return _tree_map(lambda x: torch.stack((x[0], x[-1])).cpu(), _tree_map(to_tensor, params))
+
+
+def _probe_carriers(flat_signals, ends, k: int):
+    """The per-call checks of the carriers, on the host: the signals of
+    members 0 and -1 (``ends``, from :func:`_member_ends`) built there,
+    ``k`` of them, each (summed) signal with one carrier, the same at both
+    ends. Returns the angular carriers and member 0's signals."""
+
+    # a mapped signal may be a SignalSum whose terms share one carrier
+    def carriers(member):
+        sigs = flat_signals(_tree_map(lambda x: x[member], ends))
         if len(sigs) != k:
             raise DynamicsError(
                 f"signals_fn (after any rwa_signal_map) must produce {k} signals to "
                 f"match the model's operators; got {len(sigs)}."
             )
-        out = []
-        for s in sigs:
-            carriers = np.atleast_1d(to_numpy(s.carrier_freq).astype(float))
-            if not np.allclose(carriers, carriers[0]):
-                raise DynamicsError(
-                    "fused_adaptive_sweep_solve requires each (summed) signal to have "
-                    "a single carrier frequency."
-                )
-            out.append(2 * np.pi * carriers[0])
-        return np.asarray(out), sigs
-
-    with span("sweep.tables"):
-        freqs, probe_sigs = probe_carriers(_tree_map(lambda x: x[0], params))
-        freqs_last, _ = probe_carriers(_tree_map(lambda x: x[-1], params))
-        if not np.allclose(freqs, freqs_last):
+        each = [np.atleast_1d(to_numpy(s.carrier_freq).astype(float)) for s in sigs]
+        firsts = [np.full(carrier.shape, carrier[0]) for carrier in each]
+        if each and not np.allclose(np.concatenate(each), np.concatenate(firsts)):
             raise DynamicsError(
-                "fused_adaptive_sweep_solve does not support sweeping the carrier "
-                "frequency — carriers must be the same for every sweep member."
+                "fused_adaptive_sweep_solve requires each (summed) signal to have "
+                "a single carrier frequency."
             )
-        amps = _amplitude_tables(
-            flat_signals, params, probe_sigs, freqs, t0, tf, envelope_resolution, model.device
-        )
-    env_dt = 0.0 if envelope_resolution is None else (tf - t0) / int(envelope_resolution)
+        return 2 * np.pi * np.asarray([carrier[0] for carrier in each]), sigs
 
-    with span("sweep.lanes"):
-        # stiffness bucketing: each tile shares one step control, so members of
-        # similar drive magnitude go to the same tile (a pure permutation)
+    freqs, sigs = carriers(0)
+    freqs_last, _ = carriers(1)
+    if not np.allclose(freqs, freqs_last):
+        raise DynamicsError(
+            "fused_adaptive_sweep_solve does not support sweeping the carrier "
+            "frequency — carriers must be the same for every sweep member."
+        )
+    return freqs, sigs
+
+
+def _probe_envelopes(sigs, t0: float, tf: float):
+    """Reject non-constant envelopes (silently wrong with
+    ``envelope_resolution=None``): member 0's, from :func:`_probe_carriers`,
+    at a few interior times, on the host."""
+    probe_ts = torch.as_tensor(t0 + np.array([0.0, 0.37, 0.71]) * (tf - t0))
+    vals = np.asarray(
+        [[np.sum(np.atleast_1d(to_numpy(s.envelope(t)).astype(complex))) for t in probe_ts]
+         for s in sigs], dtype=complex,
+    ).reshape(len(sigs), len(probe_ts))
+    if not np.allclose(vals, vals[:, :1], rtol=1e-12, atol=1e-12):
+        raise DynamicsError(
+            "fused_adaptive_sweep_solve with envelope_resolution=None requires "
+            "constant-envelope signals; pass envelope_resolution=S for "
+            "time-dependent pulse shapes."
+        )
+
+
+class _AdaptivePlan:
+    """What the adaptive sweep's glue fixes for one call shape on the host
+    (the checked carriers, the amplitude tables' device constants, ``y0``
+    in the frame basis, the evaluation times, B1's static planes) and the
+    device chain from the parameters to the result (:meth:`run`)."""
+
+    def __init__(self, model, signals_fn, params, t_span, y0, atol, rtol, max_steps, h0, tile_b,
+                 rwa_signal_map, envelope_resolution, bucket_lanes, t_eval, probe=None):
+        (vectorized_lindblad, self.solve_dim, self.static_fb, self.ops_fb, self.omega, t0,
+         tf) = _extract_generator_data(model, t_span, "fused_adaptive_sweep_solve")
+        if vectorized_lindblad:
+            raise NotImplementedError(
+                "fused_adaptive_sweep_solve on a vectorized LindbladModel is still to be ported "
+                "(ROADMAP A7, left over); use fused_sweep_solve."
+            )
+        self.model, self.device = model, model.device
+        self.flat_signals = _flat_signals(signals_fn, rwa_signal_map)
+        self.envelope_resolution, self.bucket_lanes, self.tile_b = (
+            envelope_resolution, bucket_lanes, tile_b)
+        with span("sweep.tables"):
+            if probe is None:
+                probe = _probe_carriers(self.flat_signals, _member_ends(params),
+                                        self.ops_fb.shape[0])
+            self.freqs, probe_sigs = probe
+            if envelope_resolution is None:
+                _probe_envelopes(probe_sigs, t0, tf)
+                self.t_zero = torch.zeros((), dtype=torch.float64, device=self.device)
+                env_dt = 0.0
+            else:
+                n_env = int(envelope_resolution)
+                env_dt = (tf - t0) / n_env
+                env_times_np = t0 + (np.arange(n_env) + 0.5) * env_dt
+                self.env_times = torch.as_tensor(env_times_np, device=self.device)
+                self.carrier_phase = torch.as_tensor(
+                    np.exp(-1j * self.freqs[:, None] * env_times_np[None, :]), device=self.device
+                )  # (k, S)
+        with span("sweep.lanes"):
+            self.y0_fb = model.rotating_frame.state_into_frame_basis(y0)
+            eval_ts, self.include_t0 = _eval_times(t_eval, t0, tf)
+        self.want_traj = t_eval is not None
+        self.kwargs = dict(tf=tf, t0=t0, atol=atol, rtol=rtol, max_steps=max_steps, h0=h0,
+                           tile_b=tile_b, env_dt=env_dt, eval_ts=eval_ts)
+        # per signal whose carrier and phase are host tensors in member 0's
+        # probe: those tensors and their device factor, uploaded here so that
+        # the device chain uploads nothing
+        self.factors = {}
+        for j, sig in enumerate(probe_sigs):
+            if sig.carrier_freq.device.type != "cpu" or sig.phase.device.type != "cpu":
+                continue
+            if envelope_resolution is None:
+                factor = self._phase_factor(sig)
+            elif type(sig).complex_value is Signal.complex_value:
+                factor = sig.carrier_factor(self.env_times)
+            else:
+                continue
+            self.factors[j] = (sig.carrier_freq, sig.phase, factor)
+        self.host_constants = True  # every factor of the chain came from self.factors
+        self.inputs = None  # B1's static planes (prepare)
+
+    def _phase_factor(self, sig):
+        return torch.exp(1j * sig.phase.to(self.device).reshape(-1))
+
+    def _factor(self, j: int, sig, make):
+        """Signal ``j``'s held factor where its carrier and phase are the host
+        tensors it was made from, else ``make()`` (and no graph)."""
+        held = self.factors.get(j)
+        if (held is not None and sig.carrier_freq.device.type == "cpu"
+                and sig.phase.device.type == "cpu" and torch.equal(sig.carrier_freq, held[0])
+                and torch.equal(sig.phase, held[1])):
+            return held[2]
+        self.host_constants = False
+        return make()
+
+    def _amplitudes(self, p):
+        rows = []
+        for j, s in enumerate(self.flat_signals(p)):
+            if self.envelope_resolution is None:
+                env = to_tensor(s.envelope(self.t_zero)).to(torch.complex128).reshape(-1)
+                factor = self._factor(j, s, lambda s=s: self._phase_factor(s))
+                rows.append(torch.sum(env * factor))  # E_jb = envelope * e^{i phase}
+                continue
+            if type(s).complex_value is Signal.complex_value:
+                factor = self._factor(j, s, lambda s=s: s.carrier_factor(self.env_times))
+                value = s.modulate(self.env_times, factor)
+            else:
+                self.host_constants = False
+                value = s.complex_value(self.env_times)
+            rows.append(value.to(torch.complex128) * self.carrier_phase[j])
+        return torch.stack(rows)  # (k,) or (k, S)
+
+    def tables(self, params) -> torch.Tensor:
+        """(k, B) constant amplitudes or (k, S, B) envelope tables for the
+        whole batch, in one ``torch.func.vmap`` pass over ``signals_fn``."""
+        params = _tree_map(lambda x: to_tensor(x, device=self.device), params)
+        return torch.movedim(torch.func.vmap(self._amplitudes)(params), 0, -1).to(self.device)
+
+    def lanes(self, amps):
+        """Stiffness bucketing (each tile shares one step control, so members
+        of similar drive magnitude go to the same tile: a pure permutation),
+        then the members onto lanes."""
         inv_order = None
-        if bucket_lanes:
+        if self.bucket_lanes:
             key = torch.sum(torch.abs(amps), dim=tuple(range(amps.ndim - 1)))  # (B,)
             order = torch.argsort(key, stable=True)
             inv_order = torch.argsort(order)
             amps = amps[..., order]
+        amps, y0_cols, B, m = _expand_lanes(amps, self.y0_fb, self.solve_dim, self.tile_b)
+        return amps, y0_cols, B, m, inv_order
 
-        y0_fb = model.rotating_frame.state_into_frame_basis(y0)
-        eval_ts, include_t0 = _eval_times(t_eval, t0, tf)
-        amps, y0_cols, B, m = _expand_lanes(amps, y0_fb, solve_dim, tile_b)
-    annotate_call(engine="adaptive", members=B)
-    args = (static_fb, ops_fb, omega, freqs, amps, y0_cols)
-    kwargs = dict(tf=tf, t0=t0, atol=atol, rtol=rtol, max_steps=max_steps, h0=h0,
-                  tile_b=tile_b, env_dt=env_dt, eval_ts=eval_ts)
+    def collect(self, out_kernel, y0_cols, B: int, m: int, inv_order):
+        """The kernel's output back to ``(B, dim[, m])`` / ``(B, n_eval,
+        dim[, m])`` in member order."""
+        if self.want_traj:
+            yf, traj = out_kernel if self.kwargs["eval_ts"] is not None else (out_kernel, None)
+            pieces = []
+            if self.include_t0:
+                pieces.append(y0_cols.to(yf.dtype)[None])
+            if traj is not None:
+                pieces.append(traj)
+            out = _collect_trajectory(self.model, torch.cat(pieces, dim=0), B, m)
+        else:
+            out = _collect_lanes(self.model, out_kernel, B, m)
+        return out if inv_order is None else out[inv_order]
 
-    def collect(out_kernel):
-        with span("sweep.collect"):
-            if t_eval is not None:
-                yf, traj = out_kernel if eval_ts is not None else (out_kernel, None)
-                pieces = []
-                if include_t0:
-                    pieces.append(y0_cols.to(yf.dtype)[None])
-                if traj is not None:
-                    pieces.append(traj)
-                out = _collect_trajectory(model, torch.cat(pieces, dim=0), B, m)
-            else:
-                out = _collect_lanes(model, out_kernel, B, m)
-            return out if inv_order is None else out[inv_order]
+    def arguments(self, params):
+        """``(args, kwargs, collect)`` of :func:`sweep_arguments`."""
+        with span("sweep.tables"):
+            amps = self.tables(params)
+        with span("sweep.lanes"):
+            amps, y0_cols, B, m, inv_order = self.lanes(amps)
+        annotate_call(engine="adaptive", members=B)
+        args = (self.static_fb, self.ops_fb, self.omega, self.freqs, amps, y0_cols)
 
-    return args, kwargs, collect
+        def collect(out_kernel):
+            with span("sweep.collect"):
+                return self.collect(out_kernel, y0_cols, B, m, inv_order)
 
+        return args, dict(self.kwargs), collect
 
-def _amplitude_tables(flat_signals, params, probe_sigs, freqs, t0, tf, envelope_resolution,
-                      device):
-    """(k, B) constant amplitudes or (k, S, B) envelope tables for the whole
-    batch on ``device`` (the model's), in one ``torch.func.vmap`` pass over
-    ``signals_fn``."""
-    params = _tree_map(lambda x: to_tensor(x, device=device), params)
-    if envelope_resolution is None:
-        # reject non-constant envelopes (silently wrong otherwise): probe the
-        # member-0 envelopes at a few interior times
-        probe_ts = torch.as_tensor(t0 + np.array([0.0, 0.37, 0.71]) * (tf - t0))
-        for s in probe_sigs:
-            vals = np.asarray(
-                [np.sum(np.atleast_1d(to_numpy(s.envelope(t)).astype(complex)))
-                 for t in probe_ts]
+    def prepare(self, members: int):
+        """B1's planes of everything but the amplitudes, for ``members``
+        members (uploads the carriers and evaluation times)."""
+        from ..ops.adaptive_sweep import prepare_static_inputs
+
+        self.members = members
+        with span("sweep.prepare"):
+            y0_cols = _lane_states(self.y0_fb, self.solve_dim, members, self.tile_b)
+            self.inputs = prepare_static_inputs(
+                self.static_fb, self.ops_fb, self.omega, self.freqs, y0_cols,
+                table=self.envelope_resolution is not None, **self.kwargs,
             )
-            if not np.allclose(vals, vals[0], rtol=1e-12, atol=1e-12):
-                raise DynamicsError(
-                    "fused_adaptive_sweep_solve with envelope_resolution=None requires "
-                    "constant-envelope signals; pass envelope_resolution=S for "
-                    "time-dependent pulse shapes."
-                )
-        t_zero = torch.zeros((), dtype=torch.float64, device=device)
 
-        def amplitudes(p):
-            rows = []
-            for s in flat_signals(p):
-                env = to_tensor(s.envelope(t_zero)).to(torch.complex128).reshape(-1)
-                ph = s.phase.to(device).reshape(-1)
-                rows.append(torch.sum(env * torch.exp(1j * ph)))
-            return torch.stack(rows)  # (k,)
+    def run(self, params, span=span):
+        """The device chain from ``params`` to the result on the prepared
+        planes: tables, lanes, B1 and the collector, with no readback, no
+        upload and no allocation whose size depends on values (so that a
+        CUDA graph can hold it)."""
+        from ..ops.adaptive_sweep import _launch_kernel, with_envelopes
+
+        with span("sweep.tables"):
+            amps = self.tables(params)
+        with span("sweep.lanes"):
+            amps, y0_cols, B, m, inv_order = self.lanes(amps)
+        with span("sweep.prepare"):
+            inputs = with_envelopes(self.inputs, amps)
+        with span("sweep.engine", tile_b=inputs.tile_b, lanes=inputs.batch):
+            final, traj, _ = _launch_kernel(inputs, False)
+        with span("sweep.collect"):
+            return self.collect(final if traj is None else (final, traj), y0_cols, B, m,
+                                inv_order)
+
+
+def _no_span(name, **attrs):
+    return contextlib.nullcontext()
+
+
+class _SweepGraph:
+    """One call shape's device chain (:meth:`_AdaptivePlan.run`) as a CUDA
+    graph. :meth:`replay` copies the parameters into the graph's own input,
+    replays it and returns a copy of its output (callers keep results across
+    calls). A capture launches nothing: the kernels run at each replay."""
+
+    def __init__(self, plan: _AdaptivePlan, params, refs):
+        from ..ops.adaptive_sweep import sweep_dopri5_lockstep
+
+        self.plan, self.refs = plan, refs  # refs: what the key names by identity
+        self.params = _tree_map(lambda x: x.detach().clone(), params)
+        self.graph = torch.cuda.CUDAGraph()
+        launches = sweep_dopri5_lockstep.launches
+        try:
+            with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+                self.out = plan.run(self.params, span=_no_span)
+        finally:
+            sweep_dopri5_lockstep.launches = launches
+        self.lock = threading.Lock()
+        self.done = torch.cuda.Event()  # the last replay's output copied
+
+    def replay(self, params) -> torch.Tensor:
+        from ..ops.adaptive_sweep import sweep_dopri5_lockstep
+
+        with self.lock:
+            stream = torch.cuda.current_stream(self.out.device)
+            stream.wait_event(self.done)
+            for dst, src in zip(_leaves(self.params), _leaves(params)):
+                dst.copy_(src)
+            self.graph.replay()
+            out = self.out.clone()
+            self.done.record(stream)
+        sweep_dopri5_lockstep.launches += 1
+        return out
+
+
+class _Eager:
+    """The entry of a key whose chain no graph holds (its carriers or phases
+    are not host constants, or its capture raised, as where the chain
+    synchronizes)."""
+
+    def __init__(self, refs):
+        self.refs = refs
+
+
+_GRAPHS: OrderedDict = OrderedDict()  # graph key -> _SweepGraph or _Eager
+
+
+def _structure(tree):
+    """The nesting, shapes, dtypes and devices of a tree of tensors, hashable."""
+    if isinstance(tree, dict):
+        return ("dict",) + tuple((key, _structure(val)) for key, val in tree.items())
+    if isinstance(tree, (list, tuple)):
+        return (type(tree).__name__,) + tuple(_structure(val) for val in tree)
+    return (tuple(tree.shape), tree.dtype, tree.device)
+
+
+def _graph_refs(model, signals_fn, y0, options) -> tuple:
+    """What :func:`_graph_key` names by identity: an entry holds them, so that
+    their ids are not reused while it lives."""
+    coll, frame = model._operator_collection, model.rotating_frame
+    return (signals_fn, options["rwa_signal_map"], coll.static_operator, coll.operators,
+            frame.frame_diag, frame.frame_basis, y0)
+
+
+def _graph_key(model, signals_fn, params, t_span, y0, options, baked, counting: bool) -> tuple:
+    """The key of a call's CUDA graph: every input the device chain reads or
+    bakes in. ``signals_fn`` and ``rwa_signal_map`` by identity; ``params``
+    by structure, shapes, dtypes and device (their values are copied in);
+    the model's operators, frame and ``y0`` by identity and in-place version
+    (by value where not a tensor); the options; ``counting``, whether B1
+    adds its steps into the metrics' device counters (their pointer is baked
+    into the graph); last, ``baked``, the carriers and phases that the host
+    probe found (:func:`_baked`; ``None``: the key without them)."""
+    from ..ops.polynomial_sweep import _operand_key
+
+    def operand(x):
+        return None if x is None else _operand_key(x)
+
+    coll, frame = model._operator_collection, model.rotating_frame
+    t_eval = options["t_eval"]
+    return (
+        id(signals_fn), id(options["rwa_signal_map"]), _structure(params),
+        model.device, model.dtype, operand(coll.static_operator), operand(coll.operators),
+        operand(frame.frame_diag), operand(frame.frame_basis), operand(y0),
+        float(t_span[0]), float(t_span[-1]), float(options["atol"]), float(options["rtol"]),
+        int(options["max_steps"]), float(options["h0"]), int(options["tile_b"]),
+        options["envelope_resolution"], bool(options["bucket_lanes"]),
+        None if t_eval is None else tuple(np.atleast_1d(to_numpy(t_eval)).astype(float)),
+        bool(counting), baked,
+    )
+
+
+def _baked(probe) -> tuple:
+    """What a graph bakes in of the signals, from the host probe
+    (:func:`_probe_carriers`): the angular carriers and member 0's phases.
+    A phase that changes with the parameters is no host constant in the
+    chain, and no graph holds it."""
+    freqs, sigs = probe
+    return (tuple(float(f) for f in freqs),
+            tuple(tuple(np.ravel(to_numpy(s.phase)).astype(float).tolist()) for s in sigs))
+
+
+def _latest_entry(base: tuple):
+    """The most recently used entry of :data:`_GRAPHS` whose key is ``base``
+    and any baked carriers and phases, as ``(baked, entry)``, or ``None``."""
+    from ..ops.polynomial_sweep import _CACHE_LOCK
+
+    with _CACHE_LOCK:
+        for key in reversed(_GRAPHS):
+            if key[:-1] == base:
+                _GRAPHS.move_to_end(key)
+                return key[-1], _GRAPHS[key]
+    return None
+
+
+def _graph_solve(model, signals_fn, params, t_span, y0, options):
+    """:func:`fused_adaptive_sweep_solve` on the card.
+
+    Members 0 and -1 are read back first. A hit replays the graph of the
+    key's latest entry, then checks the signals on the host while the card
+    runs it (an error discards the result) and keeps the result if the
+    carriers and phases are the entry's. Otherwise the call runs the chain
+    eagerly and, at a key's first call, captures it (a miss). A key whose
+    chain no graph holds runs the eager path (a fallback). Counted as
+    ``sweep.graph_hits``, ``_misses``, ``_fallbacks``.
+    """
+    from ..ops.adaptive_sweep import STEP_COUNTERS
+    from ..ops.polynomial_sweep import _lru_put
+
+    t0, tf = _time_span(t_span, "fused_adaptive_sweep_solve")
+    params = _tree_map(lambda x: to_tensor(x, device=model.device), params)
+    flat_signals = _flat_signals(signals_fn, options["rwa_signal_map"])
+    k = model._operator_collection.operators.shape[0]
+    with span("sweep.tables"):
+        ends = _member_ends(params)  # before any replay, which it would wait for
+    counting = metrics.device_counters(STEP_COUNTERS, model.device) is not None
+    base = _graph_key(model, signals_fn, params, t_span, y0, options, None, counting)[:-1]
+    latest = _latest_entry(base)
+    if latest is not None and isinstance(latest[1], _SweepGraph):
+        graph = latest[1]
+        annotate_call(engine="adaptive", members=graph.plan.members)
+        with span("sweep.engine", tile_b=graph.plan.tile_b, lanes=graph.plan.inputs.batch):
+            out = graph.replay(params)
+        with span("sweep.tables"):
+            probe = _probe_carriers(flat_signals, ends, k)
+            if options["envelope_resolution"] is None:
+                _probe_envelopes(probe[1], t0, tf)
+        if _baked(probe) == latest[0]:
+            metrics.count("sweep.graph_hits")
+            return out
     else:
-        n_env = int(envelope_resolution)
-        env_dt = (tf - t0) / n_env
-        env_times_np = t0 + (np.arange(n_env) + 0.5) * env_dt
-        env_times = torch.as_tensor(env_times_np, device=device)
-        carrier_phase = torch.as_tensor(
-            np.exp(-1j * freqs[:, None] * env_times_np[None, :]), device=device
-        )  # (k, S)
-
-        def amplitudes(p):
-            rows = [
-                s.complex_value(env_times).to(torch.complex128) * carrier_phase[j]
-                for j, s in enumerate(flat_signals(p))
-            ]
-            return torch.stack(rows)  # (k, S)
-
-    return torch.movedim(torch.func.vmap(amplitudes)(params), 0, -1).to(device)
+        with span("sweep.tables"):
+            probe = _probe_carriers(flat_signals, ends, k)
+    plan = _AdaptivePlan(model, signals_fn, params, t_span, y0, probe=probe, **options)
+    key = base + (_baked(probe),)
+    if latest is not None and isinstance(latest[1], _Eager) and key[-1] == latest[0]:
+        metrics.count("sweep.graph_fallbacks")
+        return _solve_eagerly(plan, params)
+    members = next(_leaves(params)).shape[0]
+    annotate_call(engine="adaptive", members=members)
+    plan.prepare(members)
+    out = plan.run(params)
+    refs = _graph_refs(model, signals_fn, y0, options)
+    entry = _Eager(refs)
+    if plan.host_constants:
+        try:
+            entry = _SweepGraph(plan, params, refs)
+        except RuntimeError:
+            pass
+    metrics.count("sweep.graph_misses" if isinstance(entry, _SweepGraph)
+                  else "sweep.graph_fallbacks")
+    _lru_put(_GRAPHS, key, entry)
+    return out
 
 
 def _checked_t_eval(t_eval, t0: float, tf: float) -> np.ndarray:
@@ -926,18 +1256,21 @@ def _expand_lanes(lane_data: torch.Tensor, y0_fb: torch.Tensor, dim: int, tile_b
     B = lane_data.shape[-1]
     if m > 1:
         lane_data = torch.repeat_interleave(lane_data, m, dim=-1)
-    total = B * m
-    pad = (-total) % tile_b
+    pad = (-B * m) % tile_b
     if pad:
         filler = lane_data[..., :1].expand(lane_data.shape[:-1] + (pad,))
         lane_data = torch.cat([lane_data, filler], dim=-1)
+    return lane_data, _lane_states(y0_fb, dim, B, tile_b), B, m
 
+
+def _lane_states(y0_fb: torch.Tensor, dim: int, B: int, tile_b: int) -> torch.Tensor:
+    """The initial states of :func:`_expand_lanes`'s lanes for ``B`` members."""
+    m = 1 if y0_fb.ndim == 1 else y0_fb.shape[1]
+    pad = (-B * m) % tile_b
     if m == 1:
-        y0_cols = y0_fb[:, None].expand(dim, total + pad)
-    else:
-        cols = y0_fb.repeat(1, B)  # member-major, column-minor
-        y0_cols = torch.cat([cols, cols[:, :1].expand(dim, pad)], dim=-1)
-    return lane_data, y0_cols, B, m
+        return y0_fb[:, None].expand(dim, B + pad)
+    cols = y0_fb.repeat(1, B)  # member-major, column-minor
+    return torch.cat([cols, cols[:, :1].expand(dim, pad)], dim=-1)
 
 
 def _collect_lanes(model, yf: torch.Tensor, B: int, m: int) -> torch.Tensor:

@@ -436,7 +436,7 @@ def test_adaptive_roofline_reader_arithmetic(clean):
 
 
 @pytest.mark.parametrize("name", ["glue_host_ms.fwd", "accepted_step_share",
-                                  "adaptive_roofline_pct"])
+                                  "adaptive_roofline_pct", "graph_hit_pct"])
 def test_readers_report_nothing_for_a_program_without_spans(clean, monkeypatch, name):
     """A program older than the spans and counters has neither API: the
     readers return None and do not raise."""
@@ -515,9 +515,11 @@ def _device_ops(prof_path, window="test.window"):
                   if ev.get("ph") == "X" and ev.get("cat") in cats and start <= ev["ts"] <= end)
 
 
-@pytest.mark.cuda
-def test_b1_counters_launch_nothing_in_a_traced_call(cuda, clean, tmp_path, monkeypatch):
+def _traced_windows_with_counters_on_and_off(cuda, tmp_path, monkeypatch, carrier):
+    """B1's device operations in a traced call with the step counters on and
+    off (each after its key's warm-up), and the two calls' outputs."""
     solver, w1 = cr_solver(dim=4, device=cuda)
+    w1 = carrier(w1)
     fn = lambda a: [Signal(lambda t: a * 0.02, carrier_freq=w1)]  # noqa: E731
     amps = torch.linspace(0.25, 1.0, 1024, device=cuda)
 
@@ -527,7 +529,10 @@ def test_b1_counters_launch_nothing_in_a_traced_call(cuda, clean, tmp_path, monk
                                       y0=np.eye(16, dtype=complex)[0], method="fused_dopri5",
                                       atol=1e-6, rtol=1e-6, h0=0.1)
 
-    call()  # warm-up: builds the kernel and makes the counters
+    call()  # warm-up: builds the kernel, makes the counters, captures the graph
+    metrics.enable_metrics()
+    call()  # and the graph of the key whose B1 adds into the counters
+    metrics.disable_metrics(clear=True)
     torch.cuda.synchronize()
     ops, outs = [], []
     for on in (True, False):
@@ -545,7 +550,29 @@ def test_b1_counters_launch_nothing_in_a_traced_call(cuda, clean, tmp_path, monk
         path = tmp_path / f"trace_{on}.json"
         prof.export_chrome_trace(str(path))
         ops.append(_device_ops(path))
-    on, off = collections.Counter(ops[0]), collections.Counter(ops[1])
+    return collections.Counter(ops[0]), collections.Counter(ops[1]), outs
+
+
+@pytest.mark.cuda
+def test_b1_counters_launch_nothing_in_a_traced_call(cuda, clean, tmp_path, monkeypatch):
+    """On the graph's replays."""
+    on, off, outs = _traced_windows_with_counters_on_and_off(cuda, tmp_path, monkeypatch,
+                                                             lambda w1: w1)
     assert on == off and on, (on - off, off - on)
     assert torch.equal(outs[0], outs[1])
     assert metrics.counters()["b1.steps_attempted"] > 0
+
+
+@pytest.mark.cuda
+def test_b1_counters_launch_nothing_in_an_eager_traced_call(cuda, clean, tmp_path, monkeypatch):
+    """On the eager path: a carrier on the card is no host constant, so the
+    sweep falls back and launches B1 itself."""
+    on, off, outs = _traced_windows_with_counters_on_and_off(
+        cuda, tmp_path, monkeypatch, lambda w1: torch.tensor(w1, dtype=torch.float64,
+                                                             device=cuda))
+    assert on == off and on, (on - off, off - on)
+    assert any("adaptive_sweep" in name for name in on), on
+    assert torch.equal(outs[0], outs[1])
+    counts = metrics.counters()
+    assert counts["b1.steps_attempted"] > 0
+    assert counts.get("sweep.graph_fallbacks", 0) >= 1 and "sweep.graph_hits" not in counts
