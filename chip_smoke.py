@@ -213,6 +213,9 @@ from pathlib import Path
 
 import numpy as np
 
+from portbench.counts import adaptive_dopri5, roofline
+from portbench.counts.roofline import PEAK_F32, PEAK_F64, PEAK_TF32
+
 SWEEP = 10_000
 T_MAIN = 100.0
 AMP_SCALE = 0.02
@@ -307,13 +310,7 @@ SV_METHODS = (
     ("jax_expm", dict(max_dt=0.01, magnus_order=2, expm_method="taylor"), 1e-9),
     ("jax_RK4_parallel", dict(max_dt=0.01), 1e-9),
 )
-# the card's peaks (H100 SXM data sheet): FP32 and FP64 outside the tensor cores,
-# FP64 matrix products on the tensor cores (DMMA), HBM
-PEAK_F32 = 67e12
-PEAK_TF32 = 495e12  # dense TF32 on the tensor cores
-PEAK_F64 = 34e12
-PEAK_F64_PRODUCTS = 67e12
-PEAK_BYTES = 3.35e12
+B8 = ("df_magnus_sweep_launch", "df_magnus_wide_launch")  # kernel B8's two sweeps
 
 
 class CheckFailed(RuntimeError):
@@ -327,6 +324,13 @@ def check(ok: bool, message: str):
 
 def log(message: str):
     print(message, file=sys.stderr, flush=True)
+
+
+def launched(*entries) -> int:
+    """The launches of the kernel entries so far (``kernel.launches.<entry>``)."""
+    from qiskit_dynamics_tpu_torch.kernels import launches
+
+    return launches(*entries)
 
 
 # --------------------------------------------------------------------------
@@ -522,27 +526,15 @@ def timed_ms(torch, fn):
 
 
 def bound(flops: float, nbytes: float, peak: float = PEAK_F32):
-    """(bound_ms, bound_by): the larger of the operations' time at ``peak``
-    (FP32 by default) and the memory time."""
-    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+    """(bound_ms, bound_by): :func:`portbench.counts.roofline.bound` in ms."""
+    seconds, by = roofline.bound(flops, nbytes, peak)
+    return seconds * 1e3, by
 
 
 def bound_f64(product_flops: float, other_flops: float, nbytes: float):
-    """:func:`bound` for FP64 work: matrix products at the tensor cores' peak,
-    the rest (elementwise terms, builds, mat-vecs) at the FP64 peak outside
-    them."""
-    return bound(product_flops / PEAK_F64_PRODUCTS * PEAK_F64 + other_flops, nbytes, PEAK_F64)
-
-
-def b1_work(n: int, k: int, tile_b: int, accepted):
-    """Float32 operations and bytes of the adaptive kernel for this run's
-    accepted steps (6 new stages per step, FSAL): per stage and member the
-    generator entries (4k) and the complex multiply-add (8) for n^2 entries,
-    the stage combination and the error norm (~20 n)."""
-    stages = 6 * float(np.sum(accepted))
-    flops = stages * tile_b * (n * n * (4 * k + 8) + 20 * n)
-    return flops
+    """(bound_ms, bound_by): :func:`portbench.counts.roofline.bound_f64` in ms."""
+    seconds, by = roofline.bound_f64(product_flops, other_flops, nbytes)
+    return seconds * 1e3, by
 
 
 def b2_flops_per_member_step(n: int, k: int, order: int, mode: str) -> float:
@@ -569,7 +561,7 @@ def b2_launch(ssw, inputs, warps=None):
     keeps resident per SM, its registers and local bytes, and the ptxas line
     of that instantiation in the library this run loaded."""
     shape = ssw.launch_shape(inputs.n, inputs.k, inputs.mode, inputs.batch, warps=warps)
-    report = Path(ssw._kernel_lib()._name + ".ptxas.txt")
+    report = Path(ssw._LIB.path + ".ptxas.txt")
     if inputs.mode == "matvec" and shape.columns > 16:
         tag = f"sweep_magnus2_wide_matvecILi{shape.columns}E"
     else:
@@ -654,13 +646,13 @@ def cr_reference(torch, solver, signals_fn, amps, y0, n_steps, dt):
     as the kernel, in float64. The loss is the main path's
     ``mean(|y[:, 1]|^2)`` over the full sweep, so each member contributes
     ``|y_b[1]|^2 / GRAD_SWEEP``."""
-    from qiskit_dynamics_tpu_torch.ops.sweep_solver import _GAUSS_C1, _GAUSS_C2
+    from qiskit_dynamics_tpu_torch.ops.magnus_rule import MAGNUS_NODES
     from qiskit_dynamics_tpu_torch.ops.xla_sweep import sweep_expm_magnus2_xla
     from qiskit_dynamics_tpu_torch.solvers.fused_sweep import _extract_generator_data
 
     _, dim, static, ops, omega, _, _ = _extract_generator_data(solver.model, (0.0, 1.0), "ref")
     gauss_t = torch.as_tensor(
-        dt * (np.arange(n_steps)[:, None] + np.array([_GAUSS_C1, _GAUSS_C2])[None, :]),
+        dt * (np.arange(n_steps)[:, None] + MAGNUS_NODES[2][None, :]),
         device=amps.device,
     )
     amps = amps.detach().clone().requires_grad_(True)
@@ -704,11 +696,11 @@ def phase_grad(torch, ssw, Signal, cr_solver):
 
     value_and_grad()  # warm-up
     torch.cuda.synchronize()
-    ssw.sweep_expm_magnus2.launches = 0
+    before = launched("sweep_magnus2_launch")
     with Capture(ssw) as cap:
         yf, g = value_and_grad()
         torch.cuda.synchronize()
-    launches = ssw.sweep_expm_magnus2.launches
+    launches = launched("sweep_magnus2_launch") - before
     check(launches > 0, "the gradient path did not launch the sweep_magnus2 kernel")
     check(yf.shape == (GRAD_SWEEP, dim) and g.shape == (GRAD_SWEEP,), "gradient path shapes")
     check(bool(torch.isfinite(yf).all()) and bool(torch.isfinite(g).all()),
@@ -810,11 +802,11 @@ def phase_lindblad(torch, ssw, Signal, Solver):
 
     sweep()
     torch.cuda.synchronize()
-    ssw.sweep_expm_magnus2.launches = 0
+    before = launched("sweep_magnus2_launch")
     with Capture(ssw) as cap:
         out = sweep()
         torch.cuda.synchronize()
-    launches = ssw.sweep_expm_magnus2.launches
+    launches = launched("sweep_magnus2_launch") - before
     check(launches > 0, "the Lindblad path did not launch the sweep_magnus2 kernel")
     check(out.shape == (LIND_SWEEP, 2, 2), f"Lindblad output shape {tuple(out.shape)}")
     check(bool(torch.isfinite(out).all()), "non-finite Lindblad density matrices")
@@ -1018,11 +1010,11 @@ def phase_lindblad8(torch, msw, Signal, solver, rho0, carrier, refs, ref_s, magn
 
     sweep()
     torch.cuda.synchronize()
-    msw.sweep_expm_magnus2_member.launches = 0
+    before = launched("member_sweep_launch")
     with Capture(msw) as cap:
         out = sweep()
         torch.cuda.synchronize()
-    launches = msw.sweep_expm_magnus2_member.launches
+    launches = launched("member_sweep_launch") - before
     check(launches > 0, f"the dim-8 Magnus-{magnus} path did not launch the member_sweep kernel")
     check(out.shape == (L8_SWEEP, dim, dim), f"dim-8 output shape {tuple(out.shape)}")
     check(bool(torch.isfinite(out).all()), "non-finite dim-8 density matrices")
@@ -1059,7 +1051,7 @@ def phase_lindblad8(torch, msw, Signal, solver, rho0, carrier, refs, ref_s, magn
     if magnus == 2:
         herm["hermitian_ms"] = cuda_ms(torch, lambda: msw._launch_kernel(
             dataclasses.replace(inputs, hermitian=True)), reps=1)
-    blocks = b3_blocks_per_sm(msw._kernel_lib(), inputs)
+    blocks = b3_blocks_per_sm(msw._LIB, inputs)
     print(
         f"phase 9 Lindblad dim 8, Magnus-{magnus}: solve_dim {inputs.n}, {L8_SWEEP} members, "
         f"{inputs.steps} steps (T={L8_T}, max_dt={max_dt}), sweep_engine auto -> member: "
@@ -1102,11 +1094,11 @@ def phase_lindblad256(torch, hp, Signal, lindblad_two_transmon_solver):
 
     poly()
     torch.cuda.synchronize()
-    hp.horner_apply_bm.launches = 0
+    before = launched("horner_apply_launch")
     with Capture(hp) as cap:
         out = poly()
         torch.cuda.synchronize()
-    launches = hp.horner_apply_bm.launches
+    launches = launched("horner_apply_launch") - before
     steps = math.ceil(L256_T / L256_MAX_DT)
     check(launches == steps, f"the dim-256 path launched the horner_apply kernel {launches} "
           f"times, not once per step ({steps})")
@@ -1129,10 +1121,10 @@ def phase_lindblad256(torch, hp, Signal, lindblad_two_transmon_solver):
     order1_ms = cuda_ms(torch, lambda: hp._launch_kernel(MTr, MTi, vr, vi, 1), reps=5)
     stream_ms = cuda_ms(
         torch, lambda: hp._launch_kernel(MTr, MTi, vr, vi, order, force_stream=True), reps=5)
-    lib = hp._kernel_lib()
+    lib = hp._LIB
     cluster = lib.horner_apply_cluster(n)
     clusters = lib.horner_apply_active_clusters(n, cluster)
-    ptxas = Path(lib._name + ".ptxas.txt")
+    ptxas = Path(lib.path + ".ptxas.txt")
     resources = " | ".join(
         line.split(":", 1)[-1].strip() for line in
         (ptxas.read_text().splitlines() if ptxas.exists() else [])
@@ -1211,7 +1203,7 @@ def bl_launch(bl, which, n, lanes, double=False):
     resident per SM and the registers and spills ptxas reported for that
     instantiation in the library this run loaded."""
     shape = bl.launch_shape(which, n, lanes, double=double)
-    report = Path(bl._kernel_lib()._name + ".ptxas.txt")
+    report = Path(bl._LIB.path + ".ptxas.txt")
     tag = BL_PTXAS_TAGS[(which, shape.lane_kernel, double)].format(
         np=n + n % 2, tile=5 if n % 5 == 0 else 4, wide=int(shape.wide))
     ptxas = ptxas_entry(report.read_text() if report.exists() else "", tag)
@@ -1256,8 +1248,8 @@ def phase_perturbative_kernels(torch, ca, bl):
     worst = dict(chain=0.0, matmul=0.0, expm=0.0, expm_bwd=0.0)
 
     def launches():
-        return (ca.chain_apply_bol.launches, bl.matmul_bol.launches,
-                bl.expm_taylor_bol.launches, bl.expm_taylor_bol_bwd.launches)
+        return (launched("chain_apply_launch"), launched("matmul_bol_launch"),
+                launched("expm_bol_launch"), launched("expm_bwd_bol_launch"))
 
     for n in PT_DIMS:
         for B in PT_BATCHES:
@@ -1346,8 +1338,8 @@ def perturbative_past_64(torch, ca, bl, Signal, interop):
     cuda = torch.device("cuda")
 
     def launches():
-        return (ca.chain_apply_bol.launches, bl.matmul_bol.launches,
-                bl.expm_taylor_bol.launches, bl.expm_taylor_bol_bwd.launches)
+        return (launched("chain_apply_launch"), launched("matmul_bol_launch"),
+                launched("expm_bol_launch"), launched("expm_bwd_bol_launch"))
 
     diffs = {}
     for n in (65, 100):
@@ -1448,10 +1440,10 @@ def df_past_32(torch, dfs, Signal, lindblad_qudit_solver, fused_sweep_solve):
         check(dfs.kernel_for(n) == "wide", f"n={n} does not take B8's wide sweep")
         for magnus_order in (2, 3):
             args, kwargs = df_kernel_problem(torch, n, magnus_order, False, "cuda")
-            before = dfs.sweep_expm_magnus_df.launches
+            before = launched(*B8)
             got = dfs.sweep_expm_magnus_df(*args, **kwargs)
             torch.cuda.synchronize()
-            check(dfs.sweep_expm_magnus_df.launches == before + 1, f"B8 at n={n}: no launch")
+            check(launched(*B8) == before + 1, f"B8 at n={n}: no launch")
             want = dfs.sweep_expm_magnus_df(*args[:-1], args[-1].cpu(), **kwargs)
             worst = max(worst, float((got.cpu() - want).abs().max()))
 
@@ -1465,10 +1457,10 @@ def df_past_32(torch, dfs, Signal, lindblad_qudit_solver, fused_sweep_solve):
         return fused_sweep_solve(solver.model, signals_fn, amps, (0.0, 2.0), 0.1, rho0,
                                  precision="df32")
 
-    before = dfs.sweep_expm_magnus_df.launches
+    before = launched(*B8)
     got = lindblad("cuda")
     torch.cuda.synchronize()
-    check(dfs.sweep_expm_magnus_df.launches == before + 1, "the dim-6 df32 sweep: no B8 launch")
+    check(launched(*B8) == before + 1, "the dim-6 df32 sweep: no B8 launch")
     check(got.device.type == "cuda" and got.shape == (9, 6, 6), "the dim-6 df32 sweep")
     worst = max(worst, float((got.cpu() - lindblad("cpu")).abs().max()))
     check(worst <= DF_KERNEL_TOL, f"B8 past n = 32, the card vs the CPU: {worst:.2e}")
@@ -1561,15 +1553,15 @@ def phase_perturbative_row(torch, phase, name, make_solver, Signal, ca, bl, refs
     amps = torch.linspace(0.2, 1.0, PT_SWEEP, dtype=torch.float64, device="cuda")
     y0, signals_fn, sweep, value_and_grad = perturbative_sweep(torch, Signal, solver, nu, amps)
 
-    wrappers = (ca.chain_apply_bol, bl.expm_taylor_bol, bl.expm_taylor_bol_bwd)
+    entries = ("chain_apply_launch", "expm_bol_launch", "expm_bwd_bol_launch")
 
     def counted(fn):
-        for w in wrappers:
-            w.launches = 0
+        before = [launched(e) for e in entries]
         with Capture(ca) as cap_chain, Capture(bl) as cap_linalg:
             out = fn()
             torch.cuda.synchronize()
-        return out, [w.launches for w in wrappers], cap_chain.last, cap_linalg.last
+        counts = [launched(e) - b for e, b in zip(entries, before)]
+        return out, counts, cap_chain.last, cap_linalg.last
 
     sweep()  # warm-up
     torch.cuda.synchronize()
@@ -1642,10 +1634,10 @@ def phase_perturbative_row(torch, phase, name, make_solver, Signal, ca, bl, refs
         pair_planes = [p.contiguous() for p in pair_planes]
         del steps, later, earlier, expm_out
         bl.matmul_bol(*pair_planes)
-        bl.matmul_bol.launches = 0
+        before = launched("matmul_bol_launch")
         product = bl.matmul_bol(*pair_planes)
         torch.cuda.synchronize()
-        matmul_launches = bl.matmul_bol.launches
+        matmul_launches = launched("matmul_bol_launch") - before
         check(matmul_launches == 1, "matmul_bol did not launch its kernel")
         matmul_ms = cuda_ms(torch, lambda: bl._launch_kernel("matmul", pair_planes), reps=5)
         matmul_plain_ms, matmul_plain = timed_ms(torch, lambda: bl.matmul_bol_plain(*pair_planes))
@@ -1814,13 +1806,13 @@ def phase_df_kernels(torch, dfs, ca, bl, device="cuda"):
                                          device, **problem)
         kwargs["hermitian"] = hermitian
         inputs = dfs.prepare_df_inputs(*args, **kwargs)
-        before = dfs.sweep_expm_magnus_df.launches
+        before = launched(*B8)
         out = dfs.sweep_expm_magnus_df(*args, **kwargs, **({} if chunk_b is None else
                                                             {"chunk_b": chunk_b}))
         plain = dfs.sweep_expm_magnus_df_plain(inputs)[0]
         torch.cuda.synchronize()
         diff = float((out - plain).abs().max())
-        launches = dfs.sweep_expm_magnus_df.launches - before
+        launches = launched(*B8) - before
         check(launches == -(-inputs.batch // (chunk_b or 2048)) and diff <= DF_KERNEL_TOL,
               f"B8 {name}: kernel vs plain {diff:.2e}, {launches} launches")
         worst["df"] = max(worst["df"], diff)
@@ -1926,11 +1918,11 @@ def phase_df32(torch, dfs, Signal, solver, w1, ref_solver, y0, device="cuda"):
 
         sweep()  # warm-up
         torch.cuda.synchronize()
-        dfs.sweep_expm_magnus_df.launches = 0
+        before = launched(*B8)
         with Capture(dfs) as cap:
             out = sweep()
             torch.cuda.synchronize()
-        launches = dfs.sweep_expm_magnus_df.launches
+        launches = launched(*B8) - before
         check(launches > 0, f"the {name} row did not launch the df_magnus_sweep kernel")
         check(out.shape == (DF_SWEEP, y0.shape[0]) and out.dtype == torch.complex128,
               f"{name} output {tuple(out.shape)} {out.dtype}")
@@ -1952,12 +1944,12 @@ def phase_df32(torch, dfs, Signal, solver, w1, ref_solver, y0, device="cuda"):
     check(diff <= DF_KERNEL_TOL, f"df32 row: B8 vs plain {diff:.2e} > {DF_KERNEL_TOL}")
     bound_ms, bound_by = df_bound(inputs)
     n_nodes = inputs.taus.shape[1]
-    lib = dfs._kernel_lib()
+    lib = dfs._LIB
     shape = dfs.launch_shape(inputs.n, inputs.k, n_nodes, inputs.hermitian,
                              min(chunk_b, inputs.batch))
     members_per_sm = shape.members_per_block * lib.df_magnus_sweep_active_blocks(
         inputs.n, inputs.k, n_nodes, int(inputs.hermitian), shape.members_per_block)
-    dmma = sass_count(lib._name, "DMMA")
+    dmma = sass_count(lib.path, "DMMA")
     check(dmma > 0, "B8's library holds no DMMA instruction: its products are not on the FP64 "
                     "tensor cores")
     layout = "rotated" if dfs.rotated_tables(inputs.n, inputs.k, n_nodes, inputs.steps) else (
@@ -1997,10 +1989,10 @@ def phase_chebyshev(torch, dfs, Signal, solver, w1, ref_solver, y0, df_refs, dev
 
     sweep()
     torch.cuda.synchronize()
-    dfs.sweep_expm_magnus_df.launches = 0
+    before = launched(*B8)
     out, info = sweep()
     torch.cuda.synchronize()
-    launches = dfs.sweep_expm_magnus_df.launches
+    launches = launched(*B8) - before
     check(launches > 0 and info.converged, "the Chebyshev row did not run B8 or did not converge")
     err = float(np.max(np.abs(out[df_probes()].cpu().numpy() - df_refs)))
     check(err <= DF_TOL, f"cheb_max_err {err:.2e} > {DF_TOL} against DOP853(1e-12)")
@@ -2019,10 +2011,10 @@ def phase_chebyshev(torch, dfs, Signal, solver, w1, ref_solver, y0, df_refs, dev
 
     map_sweep()
     torch.cuda.synchronize()
-    dfs.sweep_expm_magnus_df.launches = 0
+    before = launched(*B8)
     map_out, map_info = map_sweep()
     torch.cuda.synchronize()
-    map_launches = dfs.sweep_expm_magnus_df.launches
+    map_launches = launched(*B8) - before
     check(map_launches > 0 and map_info.converged, "the 2-d map did not run B8 or converge")
     check(map_out.shape == (CHEB_MAP, CHEB_MAP, y0.shape[0]), f"map shape {map_out.shape}")
     corners = ((0, 0), (CHEB_MAP // 2, CHEB_MAP // 2), (CHEB_MAP - 1, CHEB_MAP - 1))
@@ -2084,11 +2076,11 @@ def phase_dysolve_df(torch, ca, bl, Signal, make_solver, name, refs, ref_s, devi
     sweep = dysolve_df_sweep(torch, Signal, solver, nu, amps)
     sweep()
     torch.cuda.synchronize()
-    ca.chain_apply_bol.launches = bl.expm_taylor_bol.launches = 0
+    before = [launched("chain_apply_launch"), launched("expm_bol_launch")]
     with Capture(ca) as cap_chain, Capture(bl) as cap_linalg:
         out = sweep()
         torch.cuda.synchronize()
-    counts = [ca.chain_apply_bol.launches, bl.expm_taylor_bol.launches]
+    counts = [launched("chain_apply_launch") - before[0], launched("expm_bol_launch") - before[1]]
     chunks = -(-PT_SWEEP // DF_CHUNK)
     check(counts[0] == chunks, f"the {name} row launched the chain kernel {counts[0]} times, "
           f"not {chunks}")
@@ -2202,10 +2194,10 @@ def phase_expm_chain(torch, ecp, expm_chain, device="cuda"):
 
     run("pallas")  # warm-up: the first launch
     torch.cuda.synchronize()
-    ecp.expm_chain_fused.launches = 0
+    before = launched("expm_chain_launch")
     fused = run("pallas")
     torch.cuda.synchronize()
-    launches = ecp.expm_chain_fused.launches
+    launches = launched("expm_chain_launch") - before
     check(launches == 1, f"expm_chain(engine='pallas') launched B9 {launches} times, not once")
     xla = run("xla")
     check(fused.shape == (EC_B, EC_N, EC_N) and bool(torch.isfinite(
@@ -2398,10 +2390,10 @@ def main() -> int:
 
     sweep()  # warm-up: first launch, allocator
     torch.cuda.synchronize()
-    asw.sweep_dopri5_lockstep.launches = 0
+    before = launched("adaptive_sweep_launch")
     out = sweep()
     torch.cuda.synchronize()
-    launches = asw.sweep_dopri5_lockstep.launches
+    launches = launched("adaptive_sweep_launch") - before
     check(launches > 0, "the main path did not launch the adaptive_sweep kernel")
     pops = (out.abs() ** 2).cpu().numpy()
     check(pops.shape == (SWEEP, dim), f"output shape {pops.shape} != {(SWEEP, dim)}")
@@ -2444,12 +2436,13 @@ def main() -> int:
     record = asw._launch_kernel(inputs, True, steps_out=b1_steps)[2].cpu().numpy()
     accepted = (record > 0).sum(axis=1)
     b1_bytes = 4 * (2 * inputs.k * inputs.batch + 4 * dim * inputs.batch)
-    b1_bound_ms, b1_bound_by = bound(b1_work(dim, inputs.k, inputs.tile_b, accepted), b1_bytes)
+    b1_flops = adaptive_dopri5.flops(dim, inputs.k, inputs.tile_b, accepted)
+    b1_bound_ms, b1_bound_by = bound(b1_flops, b1_bytes)
     b1_shape = asw.launch_shape(dim, inputs.k, inputs.tile_b)
     b1_clusters = asw.active_clusters(dim, inputs.k, inputs.tile_b)
     b1_steps_max = int(b1_steps.max())
     b1_us_per_step = kernel_ms * 1e3 / b1_steps_max
-    report = Path(asw._kernel_lib()._name + ".ptxas.txt")  # the library the launch loaded
+    report = Path(asw._LIB.path + ".ptxas.txt")  # the library the launch loaded
     # the instantiation the launch took: rows, two operators or any, n = 16 compile-time
     two = inputs.k == 2
     compiled_n = 16 if two and dim == 16 and b1_shape.lanes * b1_shape.rows == 16 else 0

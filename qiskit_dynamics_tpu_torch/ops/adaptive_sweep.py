@@ -29,12 +29,11 @@ Two implementations of the same arithmetic:
   member per lane group with its stages in registers (:func:`launch_shape`).
 - :func:`sweep_dopri5_lockstep_plain`: eager PyTorch, batched over tiles.
 
-:func:`sweep_dopri5_lockstep` runs the kernel for CUDA tensors and the twin
-for CPU tensors.
+:func:`sweep_dopri5_lockstep` (and :func:`sweep_prepared`, on inputs already
+prepared) runs the kernel for CUDA tensors and the twin for CPU tensors.
 """
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 from dataclasses import dataclass
 from typing import Optional
@@ -42,8 +41,10 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..kernels import MAX_SHARED_BYTES, Library
 from ..unified import default_device, to_tensor
 from ..utils import metrics
+from .magnus_rule import TWO_PI
 from .rk_tableaus import (
     DOPRI5_A as _A,
     DOPRI5_B as _B,
@@ -52,13 +53,11 @@ from .rk_tableaus import (
     DOPRI5_N_STAGES as _N_STAGES,
 )
 
-__all__ = ["sweep_dopri5_lockstep", "sweep_dopri5_lockstep_plain", "prepare_inputs",
-           "prepare_static_inputs", "with_envelopes"]
+__all__ = ["sweep_dopri5_lockstep", "sweep_dopri5_lockstep_plain", "sweep_prepared",
+           "prepare_inputs", "prepare_static_inputs", "with_envelopes"]
 
 MAX_N = 64  # the kernel's compiled cap on the state dimension
-MAX_SHARED_BYTES = 232448  # dynamic shared memory a block may use on Hopper
 _EPS32X4 = 4.0 * 1.1920929e-7  # stall guard: 4 f32 ulps
-_TWO_PI = 2.0 * np.pi
 
 
 @dataclass
@@ -228,19 +227,20 @@ def sweep_dopri5_lockstep(
             env_dt=env_dt, eval_ts=eval_ts,
         )
     with metrics.span("sweep.engine", tile_b=inputs.tile_b, lanes=inputs.batch):
-        if inputs.y0r.is_cuda:
-            final, traj, rec = _launch_kernel(inputs, record_steps)
-        elif inputs.y0r.device.type == "cpu":
-            final, traj, rec = sweep_dopri5_lockstep_plain(inputs, record_steps)
-        else:
-            raise RuntimeError(
-                f"sweep_dopri5_lockstep has no path for device {inputs.y0r.device}.")
+        final, traj, rec = sweep_prepared(inputs, record_steps)
     result = final if traj is None else (final, traj)
     return (result, rec) if record_steps else result
 
 
-# the number of times the CUDA kernel was launched (reset by callers that count)
-sweep_dopri5_lockstep.launches = 0
+def sweep_prepared(inputs: SweepInputs, record_steps: bool = False):
+    """The sweep of prepared inputs (:func:`prepare_inputs`): the CUDA kernel
+    for inputs on the card, the eager twin for inputs on the CPU. Returns
+    ``(final, trajectory or None, step record or None)``."""
+    if inputs.y0r.is_cuda:
+        return _launch_kernel(inputs, record_steps)
+    if inputs.y0r.device.type == "cpu":
+        return sweep_dopri5_lockstep_plain(inputs, record_steps)
+    raise RuntimeError(f"sweep_dopri5_lockstep has no path for device {inputs.y0r.device}.")
 
 
 # ---------------------------------------------------------------------------
@@ -254,20 +254,16 @@ CLUSTER_SIZES = (1, 2, 4, 8, 16)
 STAGES = 6  # new RHS stages per step, whose tables a block forms per pass
 # shared memory a block keeps within, where it can, so that two share an SM
 SHARED_TARGET_BYTES = MAX_SHARED_BYTES // 2
-_ERR_RESIDENT = 1002  # the launch's code for a shape the card co-schedules no cluster of
 CONTROL_BYTES = 304  # the kernel's per-block control block (sizeof, padded to 16)
 
 # the counters the kernel adds each tile's steps into, while metrics record
 STEP_COUNTERS = ("b1.steps_attempted", "b1.steps_accepted")
 
-_PTR = ctypes.c_void_p
-_ARGTYPES = (
-    [_PTR] * 20
-    + [ctypes.c_int] * 8
-    + [ctypes.c_double] * 6
-    + [ctypes.c_int] * 6
-    + [_PTR]
-)
+_LIB = Library("adaptive_sweep", {
+    "adaptive_sweep_launch": "p20 i8 d6 i6 s",
+    "adaptive_sweep_active_clusters": "i9 -> i",
+    "adaptive_sweep_smem_bytes": "i5 -> q",
+})
 
 
 @dataclass(frozen=True)
@@ -374,21 +370,6 @@ def launch_shape(n: int, k: int, tile_b: int) -> LaunchShape:
     return shape_for(n, k, tile_b, max(g for g in CLUSTER_SIZES if tile_b % g == 0))
 
 
-def _kernel_lib():
-    from ..kernels import _build
-
-    lib = _build.load("adaptive_sweep")
-    lib.adaptive_sweep_launch.argtypes = _ARGTYPES
-    lib.adaptive_sweep_launch.restype = ctypes.c_int
-    lib.adaptive_sweep_active_clusters.argtypes = [ctypes.c_int] * 9
-    lib.adaptive_sweep_active_clusters.restype = ctypes.c_int
-    lib.adaptive_sweep_smem_bytes.argtypes = [ctypes.c_int] * 5
-    lib.adaptive_sweep_smem_bytes.restype = ctypes.c_longlong
-    lib.adaptive_sweep_error_string.argtypes = [ctypes.c_int]
-    lib.adaptive_sweep_error_string.restype = ctypes.c_char_p
-    return lib
-
-
 def _shape_args(shape: LaunchShape):
     return (shape.cluster, shape.lanes, shape.rows, shape.threads, shape.members_per_group,
             shape.stages_per_pass)
@@ -398,13 +379,9 @@ def active_clusters(n: int, k: int, tile_b: int, shape: Optional[LaunchShape] = 
     """Clusters of the launch shape (by default :func:`launch_shape`'s) that
     the card co-schedules, by the CUDA occupancy calculator."""
     shape = launch_shape(n, k, tile_b) if shape is None else shape
-    lib = _kernel_lib()
-    count = lib.adaptive_sweep_active_clusters(n, k, tile_b, *_shape_args(shape))
+    count = _LIB.adaptive_sweep_active_clusters(n, k, tile_b, *_shape_args(shape))
     if count < 0:
-        raise RuntimeError(
-            f"adaptive_sweep occupancy query for {shape}: "
-            f"{lib.adaptive_sweep_error_string(-count).decode()}"
-        )
+        raise RuntimeError(f"adaptive_sweep occupancy query for {shape}: error code {-count}.")
     return count
 
 
@@ -440,32 +417,15 @@ def _launch_kernel(inputs: SweepInputs, record_steps: bool, shape: Optional[Laun
             (n_tiles * shape.cluster, shape.members_per_group, 9, shape.rows, shape.threads, 2),
             dtype=torch.float32, device=device,
         )
-
-    def ptr(t):
-        return None if t is None or t.numel() == 0 else t.data_ptr()
-
-    lib = _kernel_lib()
-    step_counts = metrics.device_counters(STEP_COUNTERS, device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        code = lib.adaptive_sweep_launch(
-            ptr(inputs.statr), ptr(inputs.stati), ptr(inputs.opsr), ptr(inputs.opsi),
-            ptr(inputs.omega), ptr(inputs.freqs), ptr(inputs.envr), ptr(inputs.envi),
-            ptr(inputs.eval_ts), ptr(inputs.y0r), ptr(inputs.y0i), ptr(outr), ptr(outi),
-            ptr(evalr), ptr(evali), ptr(rec), ptr(scratch),
-            ptr(steps_out), ptr(clocks), ptr(step_counts), n, k, inputs.n_env, n_eval, B,
-            tile_b, inputs.max_steps, int(record_steps),
-            inputs.t0, inputs.dur, inputs.env_dt, inputs.atol, inputs.rtol, inputs.h0,
-            *_shape_args(shape), stream,
-        )
-    if code == _ERR_RESIDENT:
-        raise RuntimeError(f"the card co-schedules no cluster of the adaptive_sweep shape {shape}.")
-    if code != 0:
-        raise RuntimeError(
-            f"adaptive_sweep kernel launch at {shape} failed: "
-            f"{lib.adaptive_sweep_error_string(code).decode()}"
-        )
-    sweep_dopri5_lockstep.launches += 1
+    _LIB.adaptive_sweep_launch(
+        inputs.statr, inputs.stati, inputs.opsr, inputs.opsi, inputs.omega, inputs.freqs,
+        inputs.envr, inputs.envi, inputs.eval_ts, inputs.y0r, inputs.y0i, outr, outi,
+        evalr, evali, rec, scratch, steps_out, clocks,
+        metrics.device_counters(STEP_COUNTERS, device), n, k, inputs.n_env, n_eval, B,
+        tile_b, inputs.max_steps, int(record_steps),
+        inputs.t0, inputs.dur, inputs.env_dt, inputs.atol, inputs.rtol, inputs.h0,
+        *_shape_args(shape),
+    )
     final = torch.complex(outr, outi)
     traj = torch.complex(evalr, evali) if n_eval else None
     return final, traj, rec
@@ -480,7 +440,7 @@ def _launch_kernel(inputs: SweepInputs, record_steps: bool, shape: Optional[Laun
 # transcendental functions do.
 def _trig(x: torch.Tensor):
     """(cos, sin) of a float64 phase argument, reduced, rounded to float32."""
-    x = torch.fmod(x, _TWO_PI)
+    x = torch.fmod(x, TWO_PI)
     return torch.cos(x).float(), torch.sin(x).float()
 
 

@@ -36,10 +36,11 @@ reports the launch a kernel takes on the card.
 """
 from __future__ import annotations
 
-import ctypes
 from dataclasses import dataclass
 
 import torch
+
+from ..kernels import Library
 
 __all__ = [
     "matmul_bol",
@@ -140,34 +141,19 @@ def expm_taylor_bol_bwd(Xr, Xi, CTr, CTi, order: int = 8, squarings: int = 0):
     )
 
 
-# the number of times each CUDA kernel was launched (reset by callers that count)
-matmul_bol.launches = 0
-expm_taylor_bol.launches = 0
-expm_taylor_bol_bwd.launches = 0
-_WRAPPERS = {"matmul": matmul_bol, "expm": expm_taylor_bol, "expm_bwd": expm_taylor_bol_bwd}
 _KINDS = {"matmul": 0, "expm": 1, "expm_bwd": 2}  # the library's kind of each kernel
 
 
 # --------------------------------------------------------------------------
 # the CUDA kernels
 # --------------------------------------------------------------------------
-def _kernel_lib():
-    from ..kernels import _build
-
-    lib = _build.load("batched_linalg")
-    pointer, integer = ctypes.c_void_p, ctypes.c_int
-    lib.matmul_bol_launch.argtypes = [pointer] * 6 + [integer] * 4 + [pointer] * 2
-    lib.expm_bol_launch.argtypes = [pointer] * 4 + [integer] * 6 + [pointer] * 2
-    lib.expm_bwd_bol_launch.argtypes = [pointer] * 7 + [integer] * 6 + [pointer]
-    lib.batched_linalg_work_bytes.argtypes = [integer] * 6
-    lib.batched_linalg_work_bytes.restype = ctypes.c_longlong
-    lib.batched_linalg_shape.argtypes = [integer] * 4 + [pointer]
-    lib.batched_linalg_shape.restype = integer
-    for fn in (lib.matmul_bol_launch, lib.expm_bol_launch, lib.expm_bwd_bol_launch):
-        fn.restype = integer
-    lib.batched_linalg_error_string.argtypes = [integer]
-    lib.batched_linalg_error_string.restype = ctypes.c_char_p
-    return lib
+_LIB = Library("batched_linalg", {
+    "matmul_bol_launch": "p6 i4 p s",
+    "expm_bol_launch": "p4 i6 p s",
+    "expm_bwd_bol_launch": "p7 i6 s",
+    "batched_linalg_work_bytes": "i6 -> q",
+    "batched_linalg_shape": "i4 p -> i",
+})
 
 
 @dataclass(frozen=True)
@@ -197,13 +183,12 @@ def launch_shape(which: str, n: int, lanes: int, double: bool = False) -> Launch
     """The launch ``which`` ("matmul", "expm" or "expm_bwd") takes on the
     current CUDA device for ``lanes`` lanes of n x n matrices (``double``:
     the complex128 expm). Needs the card: it builds and asks the library."""
-    lib = _kernel_lib()
-    out = (ctypes.c_longlong * 9)()
-    code = lib.batched_linalg_shape(_KINDS[which], n, lanes, int(double), out)
+    out = torch.zeros(9, dtype=torch.int64)
+    code = _LIB.batched_linalg_shape(_KINDS[which], n, lanes, int(double), out)
     if code != 0:
         raise ValueError(f"the CUDA batched_linalg {which} kernel refuses n={n}, "
-                         f"{lanes} lanes: {lib.batched_linalg_error_string(code).decode()}")
-    v = list(out)
+                         f"{lanes} lanes (error code {code}).")
+    v = out.tolist()
     return LaunchShape(*v[:5], *(bool(x) for x in v[5:8]), v[8])
 
 
@@ -244,37 +229,24 @@ def _launch_kernel(which: str, planes, order: int = 0, squarings: int = 0):
     if B == 0:
         return out_planes[..., 0], out_planes[..., 1]
     pairs = [_pair(planes[i].detach(), planes[i + 1].detach()) for i in range(0, len(planes), 2)]
-    pointers = [x.data_ptr() for pair in pairs for x in pair[:2]]
+    inputs = [x for pair in pairs for x in pair[:2]]
     strides = [pair[2] for pair in pairs]
-    lib = _kernel_lib()
-    with torch.cuda.device(first.device):
-        stream = torch.cuda.current_stream(first.device).cuda_stream
-        # the device work buffer: the working matrices where they do not fit
-        # shared memory (none for the lane kernels)
-        nbytes = int(lib.batched_linalg_work_bytes(_KINDS[which], n, B, order, squarings,
-                                                   int(double)))
-        if nbytes < 0:
-            raise ValueError(f"the CUDA batched_linalg {which} kernel refuses n={n}, B={B}.")
-        work = torch.empty(nbytes, dtype=torch.uint8, device=first.device) if nbytes else None
-        work_ptr = None if work is None else work.data_ptr()
-        if which == "matmul":
-            code = lib.matmul_bol_launch(
-                *pointers, out.data_ptr(), out.data_ptr() + 4, n, B, *strides, work_ptr, stream)
-        elif which == "expm":
-            code = lib.expm_bol_launch(
-                *pointers, out.data_ptr(), out.data_ptr() + out.element_size() // 2, n, B, order,
-                squarings, *strides, int(double), work_ptr, stream)
-        else:
-            code = lib.expm_bwd_bol_launch(
-                *pointers, out.data_ptr(), out.data_ptr() + 4, work_ptr, n, B, order, squarings,
-                *strides, stream)
-    if code != 0:
-        raise RuntimeError(
-            f"batched_linalg {which} kernel launch failed: "
-            f"{lib.batched_linalg_error_string(code).decode()}"
-        )
-    _WRAPPERS[which].launches += 1
-    return out_planes[..., 0], out_planes[..., 1]
+    outr, outi = out_planes[..., 0], out_planes[..., 1]
+    # the device work buffer: the working matrices where they do not fit
+    # shared memory (none for the lane kernels)
+    nbytes = int(_LIB.batched_linalg_work_bytes(_KINDS[which], n, B, order, squarings,
+                                                int(double)))
+    if nbytes < 0:
+        raise ValueError(f"the CUDA batched_linalg {which} kernel refuses n={n}, B={B}.")
+    work = torch.empty(nbytes, dtype=torch.uint8, device=first.device) if nbytes else None
+    if which == "matmul":
+        _LIB.matmul_bol_launch(*inputs, outr, outi, n, B, *strides, work)
+    elif which == "expm":
+        _LIB.expm_bol_launch(*inputs, outr, outi, n, B, order, squarings, *strides, int(double),
+                             work)
+    else:
+        _LIB.expm_bwd_bol_launch(*inputs, outr, outi, work, n, B, order, squarings, *strides)
+    return outr, outi
 
 
 # --------------------------------------------------------------------------

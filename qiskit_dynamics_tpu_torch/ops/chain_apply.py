@@ -25,9 +25,9 @@ block, so callers pad nothing) and ``interpret``.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
+
+from ..kernels import Library
 
 __all__ = ["chain_apply_bol", "chain_apply_bol_ad", "chain_apply_bol_plain"]
 
@@ -68,22 +68,7 @@ def chain_apply_bol(props, y0):
     raise RuntimeError(f"chain_apply_bol has no path for device {props.device}.")
 
 
-# the number of times the CUDA kernel was launched (reset by callers that count)
-chain_apply_bol.launches = 0
-
-
-def _kernel_lib():
-    from ..kernels import _build
-
-    lib = _build.load("chain_apply")
-    lib.chain_apply_launch.argtypes = (
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_longlong] * 3 + [ctypes.c_int]
-        + [ctypes.c_void_p]
-    )
-    lib.chain_apply_launch.restype = ctypes.c_int
-    lib.chain_apply_error_string.argtypes = [ctypes.c_int]
-    lib.chain_apply_error_string.restype = ctypes.c_char_p
-    return lib
+_LIB = Library("chain_apply", {"chain_apply_launch": "p3 i3 q3 i s"})
 
 
 def _launch_kernel(props, y0):
@@ -99,19 +84,8 @@ def _launch_kernel(props, y0):
         props = props.contiguous()  # the kernel needs the batch minor
     y0 = y0.contiguous()
     out = torch.empty_like(y0)
-    lib = _kernel_lib()
-    with torch.cuda.device(props.device):
-        stream = torch.cuda.current_stream(props.device).cuda_stream
-        code = lib.chain_apply_launch(
-            props.data_ptr(), y0.data_ptr(), out.data_ptr(), T, n, B,
-            props.stride(0), props.stride(1), props.stride(2),
-            int(props.dtype == torch.complex128), stream,
-        )
-    if code != 0:
-        raise RuntimeError(
-            f"chain_apply kernel launch failed: {lib.chain_apply_error_string(code).decode()}"
-        )
-    chain_apply_bol.launches += 1
+    _LIB.chain_apply_launch(props, y0, out, T, n, B, *props.stride()[:3],
+                            int(props.dtype == torch.complex128))
     return out
 
 

@@ -38,15 +38,15 @@ every operation is FP64 here.
 """
 from __future__ import annotations
 
-import ctypes
 from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
 import torch
 
+from ..kernels import MAX_SHARED_BYTES, Library
 from ..unified import default_device, to_tensor
-from .sweep_solver import _GAUSS_C1, _GAUSS_C2, _P2, MAX_SHARED_BYTES, _validate_eval_slots
+from .magnus_rule import MAGNUS_NODES, TWO_PI, step_constants, validate_eval_slots
 
 __all__ = [
     "MAGNUS_NODES",
@@ -55,12 +55,6 @@ __all__ = [
     "sweep_expm_magnus_df_plain",
     "prepare_df_inputs",
 ]
-
-#: Gauss-Legendre nodes in (0, 1) of the Magnus rule of each order
-MAGNUS_NODES = {
-    2: np.array([_GAUSS_C1, _GAUSS_C2]),
-    3: np.array([0.5 - np.sqrt(15) / 10, 0.5, 0.5 + np.sqrt(15) / 10]),
-}
 
 MAX_N = 32  # the tensor-core sweep pads n with zeros to 8, 16, 24 or 32
 MAX_WIDE_N = 256  # the one-block-per-member sweep above MAX_N (kWideMaxN)
@@ -79,7 +73,6 @@ SM_SHARED_BYTES = 233472  # shared memory of one SM (228 KB)
 BLOCK_RESERVED_BYTES = 1024  # shared memory the runtime keeps per block
 MAX_BLOCKS_PER_SM, MAX_WARPS_PER_SM = 32, 64
 ROTATED_TABLE_BYTES = 40 << 20  # the rotated tables' limit; the (cos, sin) table above it
-_TWO_PI = 2.0 * np.pi
 
 
 def _rule_consts(magnus_order: int, order: int):
@@ -88,15 +81,6 @@ def _rule_consts(magnus_order: int, order: int):
     if magnus_order == 2:
         return (inv_j,)
     return (2.0, 20.0, 1.0 / 12, 1.0 / 60, 1.0 / 240, inv_j)
-
-
-def _step_consts(magnus_order: int, dts: np.ndarray):
-    """Per-step float64 (T,) arrays of the dt-dependent rule scalars:
-    ``(dt / 2, p2 dt^2)`` for order 2, ``(dt, c0 dt, c1 dt)`` for order 3."""
-    dts = np.asarray(dts, dtype=np.float64)
-    if magnus_order == 2:
-        return (dts / 2, _P2 * dts**2)
-    return (dts, np.sqrt(15.0) / 3 * dts, 10.0 / 3 * dts)
 
 
 @dataclass
@@ -159,7 +143,7 @@ def _factor_table(coef_factors, taus: torch.Tensor, k: int, device) -> torch.Ten
                 f"coef_factors carriers must be shaped {tuple(amps.shape[:2])}; "
                 f"got {tuple(carriers.shape)}."
             )
-        theta = torch.fmod(_TWO_PI * carriers * taus[:, :, None, None], _TWO_PI)
+        theta = torch.fmod(TWO_PI * carriers * taus[:, :, None, None], TWO_PI)
         waves = torch.polar(torch.ones_like(theta), theta)  # (T, n_nodes, k, R)
     return torch.real(torch.einsum("tgjr,jrb->tgjb", waves, amps)).contiguous()
 
@@ -223,10 +207,10 @@ def prepare_df_inputs(
             f"{tuple(ops.shape)}, coefficients {tuple(coef.shape)}"
         )
     step = np.zeros((T, 3))
-    step[:, : magnus_order] = np.stack(_step_consts(magnus_order, dts), axis=1)
+    step[:, : magnus_order] = np.stack(step_constants(magnus_order, dts), axis=1)
     slots, n_eval = None, 0
     if eval_slots is not None:
-        n_eval = _validate_eval_slots(eval_slots, T)
+        n_eval = validate_eval_slots(eval_slots, T)
         slots = torch.as_tensor(np.asarray(eval_slots, dtype=np.int32), device=device)
     return DfInputs(
         static=static, ops=ops,
@@ -300,10 +284,6 @@ def sweep_expm_magnus_df(
     return final if traj is None else (final, traj)
 
 
-# the number of times the CUDA kernel was launched (reset by callers that count)
-sweep_expm_magnus_df.launches = 0
-
-
 def sweep_expm_magnus_df_pallas(
     static_op, operators, frame_omega, coefficients, y0, dt: float, t0: float = 0.0,
     magnus_order: int = 3, order: int = 12,
@@ -321,39 +301,17 @@ def sweep_expm_magnus_df_pallas(
 # ---------------------------------------------------------------------------
 # CUDA kernel launch
 # ---------------------------------------------------------------------------
-_PTR = ctypes.c_void_p
-
-
-def _kernel_lib():
-    from ..kernels import _build
-
-    lib = _build.load("df_magnus_sweep")
-    lib.df_magnus_sweep_tables.argtypes = [_PTR] * 6 + [ctypes.c_int] * 5 + [_PTR]
-    lib.df_magnus_sweep_tables.restype = ctypes.c_int
-    lib.df_magnus_sweep_launch.argtypes = [_PTR] * 8 + [ctypes.c_int] * 11 + [_PTR]
-    lib.df_magnus_sweep_launch.restype = ctypes.c_int
-    lib.df_magnus_sweep_product.argtypes = [_PTR] * 3 + [ctypes.c_int] * 2 + [_PTR]
-    lib.df_magnus_sweep_product.restype = ctypes.c_int
-    lib.df_magnus_sweep_smem_bytes.argtypes = [ctypes.c_int] * 5
-    lib.df_magnus_sweep_smem_bytes.restype = ctypes.c_size_t
-    lib.df_magnus_sweep_active_blocks.argtypes = [ctypes.c_int] * 5
-    lib.df_magnus_sweep_active_blocks.restype = ctypes.c_int
-    lib.df_magnus_sweep_error_string.argtypes = [ctypes.c_int]
-    lib.df_magnus_sweep_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _wide_lib():
-    from ..kernels import _build
-
-    lib = _build.load("df_magnus_wide")
-    lib.df_magnus_wide_work_bytes.argtypes = [ctypes.c_int] * 4
-    lib.df_magnus_wide_work_bytes.restype = ctypes.c_longlong
-    lib.df_magnus_wide_launch.argtypes = [_PTR] * 11 + [ctypes.c_int] * 9 + [_PTR]
-    lib.df_magnus_wide_launch.restype = ctypes.c_int
-    lib.df_magnus_wide_error_string.argtypes = [ctypes.c_int]
-    lib.df_magnus_wide_error_string.restype = ctypes.c_char_p
-    return lib
+_LIB = Library("df_magnus_sweep", {
+    "df_magnus_sweep_tables": "p6 i5 s",
+    "df_magnus_sweep_launch": "p8 i11 s",
+    "df_magnus_sweep_product": "p3 i2 s",
+    "df_magnus_sweep_smem_bytes": "i5 -> z",
+    "df_magnus_sweep_active_blocks": "i5 -> i",
+})
+_WIDE_LIB = Library("df_magnus_wide", {
+    "df_magnus_wide_work_bytes": "i4 -> q",
+    "df_magnus_wide_launch": "p11 i9 s",
+})
 
 
 def padded(n: int) -> int:
@@ -428,7 +386,6 @@ def _launch_kernel(inputs: DfInputs, chunk_b: int, rotated: Optional[bool] = Non
         return _launch_wide(inputs, chunk_b)
     device = inputs.y0.device
     n_nodes = inputs.taus.shape[1]
-    lib = _kernel_lib()
     np_ = padded(n)
     if rotated is None:
         rotated = rotated_tables(n, k, n_nodes, T)
@@ -437,27 +394,16 @@ def _launch_kernel(inputs: DfInputs, chunk_b: int, rotated: Optional[bool] = Non
                       device=device)
     out = torch.empty((n, B), dtype=torch.complex128, device=device)
     evals = torch.zeros((inputs.n_eval, n, B), dtype=torch.complex128, device=device)
-
-    def ptr(t):
-        return None if t is None or t.numel() == 0 else t.data_ptr()
-
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        code = lib.df_magnus_sweep_tables(
-            ptr(inputs.static), ptr(inputs.ops), ptr(inputs.omega), ptr(inputs.taus), ptr(opsp),
-            ptr(tab), n, k, T, n_nodes, int(rotated), stream,
+    _LIB.df_magnus_sweep_tables(inputs.static, inputs.ops, inputs.omega, inputs.taus, opsp, tab,
+                                n, k, T, n_nodes, int(rotated))
+    for b0 in range(0, B, chunk_b):
+        nb = min(chunk_b, B - b0)
+        shape = launch_shape(n, k, n_nodes, inputs.hermitian, nb)
+        _LIB.df_magnus_sweep_launch(
+            opsp, tab, inputs.step, inputs.coef, inputs.slots, inputs.y0, out, evals, n, k, T,
+            n_nodes, inputs.order, int(inputs.hermitian), int(rotated), shape.members_per_block,
+            b0, nb, B,
         )
-        _check(lib, code, "table")
-        for b0 in range(0, B, chunk_b):
-            nb = min(chunk_b, B - b0)
-            shape = launch_shape(n, k, n_nodes, inputs.hermitian, nb)
-            code = lib.df_magnus_sweep_launch(
-                ptr(opsp), ptr(tab), ptr(inputs.step), ptr(inputs.coef), ptr(inputs.slots),
-                ptr(inputs.y0), ptr(out), ptr(evals), n, k, T, n_nodes, inputs.order,
-                int(inputs.hermitian), int(rotated), shape.members_per_block, b0, nb, B, stream,
-            )
-            _check(lib, code, "sweep")
-            sweep_expm_magnus_df.launches += 1
     return out, (evals if inputs.n_eval else None)
 
 
@@ -467,40 +413,20 @@ def _launch_wide(inputs: DfInputs, chunk_b: int):
     n, k, T, B = inputs.n, inputs.k, inputs.steps, inputs.batch
     device = inputs.y0.device
     n_nodes = inputs.taus.shape[1]
-    lib = _wide_lib()
     out = torch.empty((n, B), dtype=torch.complex128, device=device)
     evals = torch.zeros((inputs.n_eval, n, B), dtype=torch.complex128, device=device)
-
-    def ptr(t):
-        return None if t is None or t.numel() == 0 else t.data_ptr()
-
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        for b0 in range(0, B, chunk_b):
-            nb = min(chunk_b, B - b0)
-            nbytes = int(lib.df_magnus_wide_work_bytes(n, k, n_nodes, nb))
-            if nbytes < 0:
-                raise ValueError(f"the CUDA df_magnus_sweep kernel refuses n={n}, {nb} members.")
-            work = torch.empty(nbytes, dtype=torch.uint8, device=device) if nbytes else None
-            code = lib.df_magnus_wide_launch(
-                ptr(inputs.static), ptr(inputs.ops), ptr(inputs.omega), ptr(inputs.taus),
-                ptr(inputs.step), ptr(inputs.coef), ptr(inputs.slots), ptr(inputs.y0), ptr(out),
-                ptr(evals), ptr(work), n, k, T, n_nodes, inputs.order, int(inputs.hermitian),
-                b0, nb, B, stream,
-            )
-            if code != 0:
-                raise RuntimeError(f"df_magnus_wide kernel launch failed: "
-                                   f"{lib.df_magnus_wide_error_string(code).decode()}")
-            sweep_expm_magnus_df.launches += 1
-    return out, (evals if inputs.n_eval else None)
-
-
-def _check(lib, code: int, which: str):
-    if code != 0:
-        raise RuntimeError(
-            f"df_magnus_sweep {which} kernel launch failed: "
-            f"{lib.df_magnus_sweep_error_string(code).decode()}"
+    for b0 in range(0, B, chunk_b):
+        nb = min(chunk_b, B - b0)
+        nbytes = int(_WIDE_LIB.df_magnus_wide_work_bytes(n, k, n_nodes, nb))
+        if nbytes < 0:
+            raise ValueError(f"the CUDA df_magnus_sweep kernel refuses n={n}, {nb} members.")
+        work = torch.empty(nbytes, dtype=torch.uint8, device=device) if nbytes else None
+        _WIDE_LIB.df_magnus_wide_launch(
+            inputs.static, inputs.ops, inputs.omega, inputs.taus, inputs.step, inputs.coef,
+            inputs.slots, inputs.y0, out, evals, work, n, k, T, n_nodes, inputs.order,
+            int(inputs.hermitian), b0, nb, B,
         )
+    return out, (evals if inputs.n_eval else None)
 
 
 def _dmma_product(x: torch.Tensor, y: torch.Tensor, mode: int = 0) -> torch.Tensor:
@@ -508,13 +434,9 @@ def _dmma_product(x: torch.Tensor, y: torch.Tensor, mode: int = 0) -> torch.Tens
     y`` (2) for (n, n) complex128 CUDA tensors, through the kernel's FP64
     tensor-core product and transposed reads in one warp: the card tests'
     check of its fragment layout."""
-    lib = _kernel_lib()
     x, y = x.contiguous(), y.contiguous()
     z = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        _check(lib, lib.df_magnus_sweep_product(x.data_ptr(), y.data_ptr(), z.data_ptr(),
-                                                x.shape[0], mode, stream), "product")
+    _LIB.df_magnus_sweep_product(x, y, z, x.shape[0], mode)
     return z
 
 
@@ -532,12 +454,13 @@ def _commutator(a, b, hermitian: bool):
 def magnus_operator(static, ops, omega, taus, step, coef, magnus_order: int, hermitian: bool):
     """One step's Magnus operator ``M`` (B, n, n): the generators at the node
     times ``taus`` (n_nodes,) for the coefficients ``coef`` (n_nodes, k, B),
-    then the rule with the step constants ``step`` of :func:`_step_consts`.
+    then the rule with the step constants ``step`` of
+    :func:`~.magnus_rule.step_constants`.
     The plain version and the df32 path's adaptive grid both use it."""
     comm = lambda a, b: _commutator(a, b, hermitian)  # noqa: E731
     gens = []
     for g in range(taus.shape[0]):
-        ph = torch.fmod(omega * taus[g], _TWO_PI)
+        ph = torch.fmod(omega * taus[g], TWO_PI)
         phase = torch.polar(torch.ones_like(ph), ph)
         acc = static + torch.einsum("jb,jmn->bmn", coef[g].to(torch.complex128), ops)
         gens.append(phase * acc)

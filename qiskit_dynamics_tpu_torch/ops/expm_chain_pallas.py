@@ -19,10 +19,9 @@ sizes its own groups of blocks) and ``interpret``.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
+from ..kernels import Library
 from .expm import expm_taylor
 
 __all__ = ["expm_chain_fused", "expm_chain_fused_plain"]
@@ -87,10 +86,6 @@ def expm_chain_fused(generators, dt: float, y0, order: int = 12, squarings: int 
     return out[0] if unbatched else out
 
 
-# the number of times the CUDA kernel was launched (reset by callers that count)
-expm_chain_fused.launches = 0
-
-
 def expm_chain_fused_plain(generators, dt: float, y0, order: int = 12, squarings: int = 2):
     """Plain version of :func:`expm_chain_fused`: per step
     ``y <- expm_taylor(G_t dt, order, squarings) @ y`` in eager torch (the
@@ -104,29 +99,11 @@ def expm_chain_fused_plain(generators, dt: float, y0, order: int = 12, squarings
     return y[0] if unbatched else y
 
 
-def _kernel_lib():
-    from ..kernels import _build
-
-    lib = _build.load("expm_chain")
-    pointer, integer = ctypes.c_void_p, ctypes.c_int
-    lib.expm_chain_plan.argtypes = [integer] * 3 + [ctypes.POINTER(integer)] * 3
-    lib.expm_chain_scratch_entries.argtypes = [integer] * 3
-    lib.expm_chain_scratch_entries.restype = ctypes.c_longlong
-    lib.expm_chain_launch.argtypes = (
-        [pointer] * 5 + [integer] * 6 + [ctypes.c_double] + [integer] * 4 + [pointer]
-    )
-    for fn in (lib.expm_chain_plan, lib.expm_chain_launch):
-        fn.restype = integer
-    lib.expm_chain_error_string.argtypes = [integer]
-    lib.expm_chain_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _raise_on(lib, code: int, what: str):
-    if code != 0:
-        raise RuntimeError(
-            f"expm_chain {what} failed: {lib.expm_chain_error_string(code).decode()}"
-        )
+_LIB = Library("expm_chain", {
+    "expm_chain_plan": "i3 p3",
+    "expm_chain_scratch_entries": "i3 -> q",
+    "expm_chain_launch": "p5 i6 d i4 s",
+})
 
 
 def _launch_kernel(gens, y0, dt: float, order: int, squarings: int):
@@ -141,23 +118,15 @@ def _launch_kernel(gens, y0, dt: float, order: int, squarings: int):
         raise ValueError(f"the CUDA expm_chain kernel takes order <= {MAX_ORDER}; got {order}.")
     gens, y0 = gens.contiguous(), y0.contiguous()
     double = int(gens.dtype == torch.complex128)
-    lib = _kernel_lib()
     out = torch.empty_like(y0)
-    with torch.cuda.device(gens.device):
-        group_size, grid_cols, groups = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
-        _raise_on(lib, lib.expm_chain_plan(n, b, double, ctypes.byref(group_size),
-                                           ctypes.byref(grid_cols), ctypes.byref(groups)),
-                  "launch plan")
-        groups = min(b, groups.value)
-        scratch = torch.empty(groups * int(lib.expm_chain_scratch_entries(n, m, order)),
-                              dtype=gens.dtype, device=gens.device)
-        barriers = torch.zeros(groups, dtype=torch.int32, device=gens.device)
-        stream = torch.cuda.current_stream(gens.device).cuda_stream
-        code = lib.expm_chain_launch(
-            gens.data_ptr(), y0.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-            barriers.data_ptr(), T, b, n, m, order, squarings, dt, group_size.value,
-            grid_cols.value, groups, double, stream,
-        )
-    _raise_on(lib, code, "kernel launch")
-    expm_chain_fused.launches += 1
+    plan = torch.zeros(3, dtype=torch.int32)  # group size, grid columns, groups
+    with torch.cuda.device(gens.device):  # the plan is the device's
+        _LIB.expm_chain_plan(n, b, double, *plan.split(1))
+    group_size, grid_cols, groups = plan.tolist()
+    groups = min(b, groups)
+    scratch = torch.empty(groups * int(_LIB.expm_chain_scratch_entries(n, m, order)),
+                          dtype=gens.dtype, device=gens.device)
+    barriers = torch.zeros(groups, dtype=torch.int32, device=gens.device)
+    _LIB.expm_chain_launch(gens, y0, out, scratch, barriers, T, b, n, m, order, squarings, dt,
+                           group_size, grid_cols, groups, double)
     return out

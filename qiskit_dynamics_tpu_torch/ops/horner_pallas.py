@@ -36,11 +36,12 @@ clusters) and ``interpret``.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
+from ..kernels import Library
+
 __all__ = ["horner_apply_bm", "horner_apply_bm_ad", "horner_twin_bm"]
+
 
 def _check(MTr, MTi, vr, vi):
     B, n = vr.shape
@@ -79,27 +80,12 @@ def horner_apply_bm(MTr, MTi, vr, vi, order: int = 8):
     raise RuntimeError(f"horner_apply_bm has no path for device {vr.device}.")
 
 
-# the number of times the CUDA kernel was launched (reset by callers that count)
-horner_apply_bm.launches = 0
-
-
-def _kernel_lib():
-    from ..kernels import _build
-
-    lib = _build.load("horner_apply")
-    lib.horner_apply_launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p
-    ]
-    lib.horner_apply_launch.restype = ctypes.c_int
-    lib.horner_apply_cluster.argtypes = [ctypes.c_int]
-    lib.horner_apply_cluster.restype = ctypes.c_int
-    lib.horner_apply_active_clusters.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.horner_apply_active_clusters.restype = ctypes.c_int
-    lib.horner_apply_max_n.argtypes = []
-    lib.horner_apply_max_n.restype = ctypes.c_int
-    lib.horner_apply_error_string.argtypes = [ctypes.c_int]
-    lib.horner_apply_error_string.restype = ctypes.c_char_p
-    return lib
+_LIB = Library("horner_apply", {
+    "horner_apply_launch": "p6 i4 s",
+    "horner_apply_cluster": "i -> i",
+    "horner_apply_active_clusters": "i2 -> i",
+    "horner_apply_max_n": "-> i",
+})
 
 
 def _launch_kernel(MTr, MTi, vr, vi, order: int, force_stream: bool = False):
@@ -112,25 +98,14 @@ def _launch_kernel(MTr, MTi, vr, vi, order: int, force_stream: bool = False):
             "the CUDA horner_apply kernel runs float32 only; its complex128 mode is queued "
             "(ROADMAP, left from A8)."
         )
-    lib = _kernel_lib()
-    if n > lib.horner_apply_max_n():
+    if n > _LIB.horner_apply_max_n():
         raise ValueError(
-            f"the CUDA horner_apply kernel takes n <= {lib.horner_apply_max_n()} (its streaming "
+            f"the CUDA horner_apply kernel takes n <= {_LIB.horner_apply_max_n()} (its streaming "
             f"variant keeps two vectors of n complex entries in shared memory); got n={n}."
         )
     MTr, MTi, vr, vi = (x.contiguous() for x in (MTr, MTi, vr, vi))
     ur, ui = torch.empty_like(vr), torch.empty_like(vi)
-    with torch.cuda.device(vr.device):
-        stream = torch.cuda.current_stream(vr.device).cuda_stream
-        code = lib.horner_apply_launch(
-            MTr.data_ptr(), MTi.data_ptr(), vr.data_ptr(), vi.data_ptr(), ur.data_ptr(),
-            ui.data_ptr(), B, n, order, int(force_stream), stream,
-        )
-    if code != 0:
-        raise RuntimeError(
-            f"horner_apply kernel launch failed: {lib.horner_apply_error_string(code).decode()}"
-        )
-    horner_apply_bm.launches += 1
+    _LIB.horner_apply_launch(MTr, MTi, vr, vi, ur, ui, B, n, order, int(force_stream))
     return ur, ui
 
 

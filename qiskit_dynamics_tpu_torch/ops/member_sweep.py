@@ -41,14 +41,14 @@ the same polynomial (``horner="vpu"|"hybrid"|"bvpu"``, ``build="batched"``,
 """
 from __future__ import annotations
 
-import ctypes
 from dataclasses import dataclass
 
 import torch
 
+from ..kernels import MAX_SHARED_BYTES, Library
 from ..unified import default_device, to_tensor
 from ..utils.metrics import span
-from .sweep_solver import _M3_C0, _M3_C1, _P2, _TWO_PI, MAX_SHARED_BYTES, gauss_nodes
+from .magnus_rule import MAGNUS_NODES, TWO_PI, step_constants
 
 __all__ = ["sweep_expm_magnus2_member", "sweep_expm_magnus2_member_plain", "prepare_inputs"]
 
@@ -172,42 +172,16 @@ def sweep_expm_magnus2_member(
     raise RuntimeError(f"sweep_expm_magnus2_member has no path for device {inputs.y0.device}.")
 
 
-# the number of times the CUDA kernel was launched (reset by callers that count)
-sweep_expm_magnus2_member.launches = 0
-
-
 # ---------------------------------------------------------------------------
 # CUDA kernel launch
 # ---------------------------------------------------------------------------
-_PTR = ctypes.c_void_p
-_ARGTYPES = (
-    [_PTR] * 12 + [ctypes.c_int] * 9 + [ctypes.c_double] * 5 + [ctypes.c_float] * 5 + [_PTR]
-)
-
-
-def _kernel_lib():
-    from ..kernels import _build
-
-    lib = _build.load("member_sweep")
-    lib.member_sweep_launch.argtypes = _ARGTYPES
-    lib.member_sweep_launch.restype = ctypes.c_int
-    lib.member_sweep_smem_bytes.argtypes = [ctypes.c_int] * 3
-    lib.member_sweep_smem_bytes.restype = ctypes.c_size_t
-    lib.member_sweep_blocks_per_sm.argtypes = [ctypes.c_int] * 2
-    lib.member_sweep_blocks_per_sm.restype = ctypes.c_int
-    lib.member_sweep_matrix_elems.argtypes = [ctypes.c_int]
-    lib.member_sweep_matrix_elems.restype = ctypes.c_size_t
-    lib.member_sweep_table_elems.argtypes = [ctypes.c_int] * 4
-    lib.member_sweep_table_elems.restype = ctypes.c_size_t
-    lib.member_sweep_error_string.argtypes = [ctypes.c_int]
-    lib.member_sweep_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _step_constants(dt: float):
-    """``dt/2``, ``p2 dt^2``, ``dt``, ``(sqrt(15)/3) dt`` and ``(10/3) dt`` in
-    float64 (each is rounded once to the working dtype where it is used)."""
-    return 0.5 * dt, _P2 * dt * dt, dt, _M3_C0 * dt, _M3_C1 * dt
+_LIB = Library("member_sweep", {
+    "member_sweep_launch": "p12 i9 d5 f5 s",
+    "member_sweep_smem_bytes": "i3 -> z",
+    "member_sweep_blocks_per_sm": "i2 -> i",
+    "member_sweep_matrix_elems": "i -> z",
+    "member_sweep_table_elems": "i4 -> z",
+})
 
 
 def _launch_kernel(inputs: MemberInputs) -> torch.Tensor:
@@ -224,19 +198,18 @@ def _launch_kernel(inputs: MemberInputs) -> torch.Tensor:
             "(ROADMAP, left from A8)."
         )
     device = inputs.y0.device
-    lib = _kernel_lib()
-    in_shared = lib.member_sweep_smem_bytes(n, k, 1) <= MAX_SHARED_BYTES
+    in_shared = _LIB.member_sweep_smem_bytes(n, k, 1) <= MAX_SHARED_BYTES
     if in_shared:
         grid, scratch = B, None
     else:
         sms = torch.cuda.get_device_properties(device).multi_processor_count
         grid = min(B, _SCRATCH_BLOCKS_PER_SM * sms)
         scratch = torch.empty(
-            (grid * lib.member_sweep_matrix_elems(n), 2), dtype=torch.float32,
+            (grid * _LIB.member_sweep_matrix_elems(n), 2), dtype=torch.float32,
             device=device,
         )
     table = torch.empty(
-        (lib.member_sweep_table_elems(n, k, T, magnus), 2), dtype=torch.float32, device=device
+        (_LIB.member_sweep_table_elems(n, k, T, magnus), 2), dtype=torch.float32, device=device
     )
 
     def planes(x):
@@ -247,24 +220,12 @@ def _launch_kernel(inputs: MemberInputs) -> torch.Tensor:
     y0r, y0i = planes(inputs.y0)
     outr = torch.empty((n, B), dtype=torch.float32, device=device)
     outi = torch.empty_like(outr)
-
-    def ptr(t):
-        return None if t is None or t.numel() == 0 else t.data_ptr()
-
-    nodes = gauss_nodes(magnus) + ((0.0,) if magnus == 2 else ())
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        code = lib.member_sweep_launch(
-            ptr(statr), ptr(stati), ptr(opsr), ptr(opsi), ptr(inputs.omega), ptr(inputs.coef),
-            ptr(y0r), ptr(y0i), ptr(outr), ptr(outi), ptr(table), ptr(scratch),
-            n, k, T, B, inputs.order, magnus, int(inputs.hermitian), int(in_shared), grid,
-            inputs.dt, inputs.t0, *nodes, *_step_constants(inputs.dt), stream,
-        )
-    if code != 0:
-        raise RuntimeError(
-            f"member_sweep kernel launch failed: {lib.member_sweep_error_string(code).decode()}"
-        )
-    sweep_expm_magnus2_member.launches += 1
+    nodes = MAGNUS_NODES[magnus].tolist() + ([0.0] if magnus == 2 else [])
+    _LIB.member_sweep_launch(
+        statr, stati, opsr, opsi, inputs.omega, inputs.coef, y0r, y0i, outr, outi, table, scratch,
+        n, k, T, B, inputs.order, magnus, int(inputs.hermitian), int(in_shared), grid,
+        inputs.dt, inputs.t0, *nodes, *step_constants(2, inputs.dt), *step_constants(3, inputs.dt),
+    )
     return torch.complex(outr, outi)
 
 
@@ -275,7 +236,8 @@ def sweep_expm_magnus2_member_plain(inputs: MemberInputs) -> torch.Tensor:
     """The plain version on any device: (n, B) final states. It holds a few
     ``(B, n, n)`` complex tensors at a time."""
     real, cplx = inputs.real, inputs.y0.dtype
-    c1, c2, dtf, c0dt, c1dt = _step_constants(inputs.dt)
+    c1, c2 = step_constants(2, inputs.dt)
+    dtf, c0dt, c1dt = step_constants(3, inputs.dt)
 
     def comm(a, b):
         p = a @ b
@@ -285,9 +247,9 @@ def sweep_expm_magnus2_member_plain(inputs: MemberInputs) -> torch.Tensor:
 
     def generators(step):
         out = []
-        for g, node in enumerate(gauss_nodes(inputs.magnus)):
+        for g, node in enumerate(MAGNUS_NODES[inputs.magnus].tolist()):
             tau = inputs.t0 + (step + node) * inputs.dt
-            ph = torch.fmod(inputs.omega * tau, _TWO_PI)
+            ph = torch.fmod(inputs.omega * tau, TWO_PI)
             rot = torch.complex(torch.cos(ph).to(real), torch.sin(ph).to(real))
             acc = (inputs.static * rot)[None]
             for j in range(inputs.k):  # rotated tables first, member combination second

@@ -43,7 +43,6 @@ dimensions and ``interpret``.
 """
 from __future__ import annotations
 
-import threading
 from collections import OrderedDict
 
 import numpy as np
@@ -51,9 +50,10 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..unified import default_device, to_numpy, to_tensor
+from ..utils import lru
 from ..utils.metrics import count, span
 from .horner_pallas import horner_apply_bm_ad
-from .sweep_solver import _M3_C0, _M3_C1, _P2, _TWO_PI, _validate_eval_slots, gauss_nodes
+from .magnus_rule import MAGNUS_NODES, TWO_PI, step_constants, validate_eval_slots
 
 __all__ = ["sweep_expm_magnus_poly", "expand_magnus_polynomial"]
 
@@ -107,7 +107,7 @@ def expand_magnus_polynomial(static_op, operators, frame_diag, dt: float, magnus
     ops = np.asarray(operators, dtype=np.complex128)
     d = np.asarray(frame_diag, dtype=np.complex128)
     k = ops.shape[0]
-    nodes = gauss_nodes(magnus_order)
+    nodes = MAGNUS_NODES[magnus_order].tolist()
 
     # tilde A_i = E_i (S + sum_k c_ik O_k) E_i^{-1}, E_i = diag(exp(d (c_i - t_ref) dt))
     a_tilde = []
@@ -121,12 +121,14 @@ def expand_magnus_polynomial(static_op, operators, frame_diag, dt: float, magnus
 
     if magnus_order == 2:
         A1, A2 = a_tilde
-        M = _padd(_pscale(_padd(A1, A2), 0.5 * dt), _pcomm(A2, A1), scale=_P2 * dt * dt)
+        c1, c2 = step_constants(2, dt)
+        M = _padd(_pscale(_padd(A1, A2), c1), _pcomm(A2, A1), scale=c2)
     else:
         A1, A2, A3 = a_tilde
-        a1 = _pscale(A2, dt)
-        a2 = _pscale(_padd(A3, A1, scale=-1.0), _M3_C0 * dt)
-        a3 = _pscale(_padd(_padd(A3, A2, scale=-2.0), A1), _M3_C1 * dt)
+        dtf, c0dt, c1dt = step_constants(3, dt)
+        a1 = _pscale(A2, dtf)
+        a2 = _pscale(_padd(A3, A1, scale=-1.0), c0dt)
+        a3 = _pscale(_padd(_padd(A3, A2, scale=-2.0), A1), c1dt)
         C1 = _pcomm(a1, a2)
         C2 = _pscale(_pcomm(_padd(_pscale(a3, 2.0), C1), a1), 1.0 / 60.0)
         M = _padd(
@@ -144,48 +146,21 @@ def expand_magnus_polynomial(static_op, operators, frame_diag, dt: float, magnus
     return mon_index, np.stack([M[m] for m in monos], axis=0)
 
 
-# entries per cache, least recently used out: at n = 1,040 a prepared entry is ~200 MB
-_CACHE_ENTRIES = 4
+# least-recently-used caches of :data:`~qiskit_dynamics_tpu_torch.utils.lru.ENTRIES` entries
 _EXPANSION_CACHE: OrderedDict = OrderedDict()  # operand values -> host (mon_index, X)
 _PREPARED_CACHE: OrderedDict = OrderedDict()  # operand identities + route -> device planes
-_CACHE_LOCK = threading.Lock()
-
-
-def _lru_get(cache, key):
-    with _CACHE_LOCK:
-        hit = cache.get(key)
-        if hit is not None:
-            cache.move_to_end(key)
-        return hit
-
-
-def _lru_put(cache, key, value):
-    with _CACHE_LOCK:
-        cache[key] = value
-        while len(cache) > _CACHE_ENTRIES:
-            cache.popitem(last=False)
 
 
 def _host_complex(x):
     return to_numpy(x).astype(np.complex128)
 
 
-def _operand_key(x):
-    """A tensor by identity and in-place version (the prepared entry holds
-    it, so its id is not reused while the entry lives); anything else, or an
-    inference tensor (which keeps no version), by value."""
-    if isinstance(x, torch.Tensor) and not x.is_inference():
-        return (id(x), x._version, tuple(x.shape), x.dtype, x.device)
-    a = _host_complex(x)
-    return (a.shape, a.tobytes())
-
-
 def _host_expansion(S, ops, d, dt, magnus_order):
     key = (S.shape, S.tobytes(), ops.shape, ops.tobytes(), d.tobytes(), dt, magnus_order)
-    hit = _lru_get(_EXPANSION_CACHE, key)
+    hit = lru.get(_EXPANSION_CACHE, key)
     if hit is None:
         hit = expand_magnus_polynomial(S, ops, d, dt, magnus_order)
-        _lru_put(_EXPANSION_CACHE, key, hit)
+        lru.put(_EXPANSION_CACHE, key, hit)
     return hit
 
 
@@ -198,10 +173,10 @@ def _prepared_expansion(static_op, operators, frame_diag, dt, magnus_order, devi
     (or expands) and uploads it."""
     d = None if frame_diag is None else _host_complex(frame_diag)
     key = (
-        device, route, real, _operand_key(static_op), _operand_key(operators),
+        device, route, real, lru.operand_key(static_op), lru.operand_key(operators),
         None if d is None else d.tobytes(), dt, magnus_order,
     )
-    entry = _lru_get(_PREPARED_CACHE, key)
+    entry = lru.get(_PREPARED_CACHE, key)
     count("poly.expansion_misses" if entry is None else "poly.expansion_hits")
     if entry is None:
         S, ops = _host_complex(static_op), _host_complex(operators)
@@ -218,7 +193,7 @@ def _prepared_expansion(static_op, operators, frame_diag, dt, magnus_order, devi
             torch.as_tensor(d.imag.copy(), device=device),
             (static_op, operators),  # held: their ids stay theirs while the entry lives
         )
-        _lru_put(_PREPARED_CACHE, key, entry)
+        lru.put(_PREPARED_CACHE, key, entry)
     return entry[:4]
 
 
@@ -310,7 +285,7 @@ def sweep_expm_magnus_poly(
 
         n_eval, slots = 0, None
         if eval_slots is not None:
-            n_eval = _validate_eval_slots(eval_slots, T)
+            n_eval = validate_eval_slots(eval_slots, T)
             slots = [int(s) for s in eval_slots]
 
     def step_fn(y, coef_step, step):
@@ -319,7 +294,7 @@ def sweep_expm_magnus_poly(
         Mr = (mono_t @ Xr).reshape(B, n, n)
         Mi = (mono_t @ Xi).reshape(B, n, n)
         # state into the step's reference frame: v = D^{-1} y
-        ph = torch.fmod(d_im * (t0 + (step + _T_REF) * dt), _TWO_PI)
+        ph = torch.fmod(d_im * (t0 + (step + _T_REF) * dt), TWO_PI)
         Dinv = torch.complex(torch.cos(ph), -torch.sin(ph)).to(cplx)[None, :, None]
         v = Dinv * y
         if horner == "pallas":  # Mr, Mi are the planes of M^T here

@@ -27,64 +27,22 @@ cannot) and the plain version for CPU tensors.
 """
 from __future__ import annotations
 
-import ctypes
 import functools
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Optional
 
 import numpy as np
 import torch
 
+from ..kernels import MAX_SHARED_BYTES, Library
 from ..unified import default_device, to_tensor
 from ..utils.metrics import span
+from .magnus_rule import MAGNUS_NODES, TWO_PI, step_constants, validate_eval_slots
 
 __all__ = ["sweep_expm_magnus2", "sweep_expm_magnus2_plain", "prepare_inputs", "phase_table"]
 
-_GAUSS_C1 = 0.5 - np.sqrt(3) / 6
-_GAUSS_C2 = 0.5 + np.sqrt(3) / 6
-_P2 = np.sqrt(3) / 12
-
-# 3-point Gauss-Legendre nodes + Magnus order-3 (6th-order) combination
-# coefficients (Blanes et al. 2009), used by the eager engine
-_GAUSS3_D1 = 0.5 - np.sqrt(15) / 10
-_GAUSS3_D2 = 0.5
-_GAUSS3_D3 = 0.5 + np.sqrt(15) / 10
-_M3_C0 = np.sqrt(15) / 3
-_M3_C1 = 10.0 / 3
-
-
-
-def gauss_nodes(magnus_order: int):
-    """The Gauss-Legendre nodes in (0, 1) of the Magnus rule of this order."""
-    if magnus_order == 2:
-        return (_GAUSS_C1, _GAUSS_C2)
-    return (_GAUSS3_D1, _GAUSS3_D2, _GAUSS3_D3)
-
-
 MAX_N = 32  # the kernel's cap on the state dimension
-MAX_SHARED_BYTES = 232448  # dynamic shared memory a block may use on Hopper
 _MODES = ("matrix", "matrix_herm", "matvec")
-_TWO_PI = 2.0 * np.pi
-
-
-def _validate_eval_slots(eval_slots, T: int) -> int:
-    """Validate a trajectory slot table; returns ``n_eval``.
-
-    The non-negative entries must be exactly a permutation of
-    ``range(n_eval)``: a duplicate or gapped slot would leave trajectory
-    slots unwritten.
-    """
-    if len(eval_slots) != T:
-        raise ValueError(f"eval_slots must have length T={T}")
-    marked = sorted(int(s) for s in eval_slots if int(s) >= 0)
-    if not marked:
-        raise ValueError("eval_slots must mark at least one step")
-    if marked != list(range(len(marked))):
-        raise ValueError(
-            "the non-negative eval_slots values must be exactly a "
-            f"permutation of range(n_eval); got {marked}."
-        )
-    return len(marked)
 
 
 def select_mode(mode: str, n: int, order: int, hermitian: bool) -> str:
@@ -180,7 +138,7 @@ def prepare_inputs(
         )
     slots, n_eval = None, 0
     if eval_slots is not None:
-        n_eval = _validate_eval_slots(eval_slots, T)
+        n_eval = validate_eval_slots(eval_slots, T)
         slots = torch.as_tensor(np.asarray(eval_slots, dtype=np.int32), device=device)
     omega = to_tensor(frame_omega, dtype=torch.float64, device=device).reshape(n, n).contiguous()
     return SweepInputs(
@@ -210,9 +168,9 @@ def phase_table(omega: torch.Tensor, t0: float, dt: float, steps: int,
     """
     n = omega.shape[0]
     f64 = dict(dtype=torch.float64, device=omega.device)
-    gauss = torch.tensor([_GAUSS_C1, _GAUSS_C2], **f64)
+    gauss = torch.as_tensor(MAGNUS_NODES[2], **f64)
     tau = t0 + (torch.arange(steps, **f64)[:, None] + gauss) * dt  # (T, 2)
-    ph = torch.fmod(omega * tau[:, :, None, None], _TWO_PI)  # (T, 2, n, n)
+    ph = torch.fmod(omega * tau[:, :, None, None], TWO_PI)  # (T, 2, n, n)
     table = torch.zeros((steps, 2, n, columns(n), 2), dtype=dtype, device=omega.device)
     table[:, :, :, :n, 0] = torch.cos(ph)
     table[:, :, :, :n, 1] = torch.sin(ph)
@@ -279,32 +237,15 @@ def sweep_expm_magnus2(
     return final if traj is None else (final, traj)
 
 
-# the number of times the CUDA kernel was launched (reset by callers that count)
-sweep_expm_magnus2.launches = 0
-
-
 # ---------------------------------------------------------------------------
 # CUDA kernel launch
 # ---------------------------------------------------------------------------
-_PTR = ctypes.c_void_p
-_ARGTYPES = [_PTR] * 13 + [ctypes.c_int] * 7 + [ctypes.c_float] * 2 + [_PTR]
-
-
-def _kernel_lib(defines: tuple = ()):
-    """The kernel library (``defines`` build a variant of the same source for
-    experiments; the package passes none)."""
-    from ..kernels import _build
-
-    lib = _build.load("sweep_magnus2", defines)
-    lib.sweep_magnus2_launch.argtypes = _ARGTYPES
-    lib.sweep_magnus2_launch.restype = ctypes.c_int
-    lib.sweep_magnus2_smem_bytes.argtypes = [ctypes.c_int] * 4
-    lib.sweep_magnus2_smem_bytes.restype = ctypes.c_size_t
-    lib.sweep_magnus2_shape.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong)]
-    lib.sweep_magnus2_shape.restype = ctypes.c_int
-    lib.sweep_magnus2_error_string.argtypes = [ctypes.c_int]
-    lib.sweep_magnus2_error_string.restype = ctypes.c_char_p
-    return lib
+_LIB = Library("sweep_magnus2", {
+    "sweep_magnus2_launch": "p13 i7 f2 s",
+    "sweep_magnus2_smem_bytes": "i4 -> z",
+    "sweep_magnus2_shape": "i5 p -> i",
+    "sweep_magnus2_profile": "p i",  # a build with -DB2_PROFILE: thread 0's cycles by part
+})
 
 
 MAX_WARPS_PER_BLOCK = 8
@@ -335,13 +276,13 @@ class LaunchShape:
         return self.blocks_per_sm * self.warps_per_block
 
 
-def _shape(lib, n: int, k: int, mode_id: int, batch: int, warps: int) -> LaunchShape:
-    out = (ctypes.c_longlong * 9)()
-    code = lib.sweep_magnus2_shape(n, k, mode_id, batch, warps, out)
+def _shape(n: int, k: int, mode_id: int, batch: int, warps: int) -> LaunchShape:
+    out = torch.zeros(9, dtype=torch.int64)
+    code = _LIB.sweep_magnus2_shape(n, k, mode_id, batch, warps, out)
     if code != 0:
-        raise ValueError(f"the sweep_magnus2 kernel refuses n={n}, k={k}, {warps} warps: "
-                         f"{lib.sweep_magnus2_error_string(code).decode()}")
-    return LaunchShape(*list(out))
+        raise ValueError(f"the sweep_magnus2 kernel refuses n={n}, k={k}, {warps} warps "
+                         f"(error code {code}).")
+    return LaunchShape(*out.tolist())
 
 
 def wave_cost(shape: LaunchShape, sms: int) -> int:
@@ -358,14 +299,14 @@ def wave_cost(shape: LaunchShape, sms: int) -> int:
 
 
 @functools.lru_cache(maxsize=256)
-def _best_warps(lib, n: int, k: int, mode_id: int, batch: int, sms: int) -> int:
+def _best_warps(n: int, k: int, mode_id: int, batch: int, sms: int) -> int:
     """The warps per block whose launch has the least :func:`wave_cost`, the
     fewest on a tie (more blocks to spread over the SMs)."""
     best, best_cost = 0, None
     for warps in range(1, MAX_WARPS_PER_BLOCK + 1):
-        if lib.sweep_magnus2_smem_bytes(n, k, mode_id, warps) > MAX_SHARED_BYTES:
+        if _LIB.sweep_magnus2_smem_bytes(n, k, mode_id, warps) > MAX_SHARED_BYTES:
             break
-        shape = _shape(lib, n, k, mode_id, batch, warps)
+        shape = _shape(n, k, mode_id, batch, warps)
         if shape.blocks_per_sm < 1:
             break
         cost = wave_cost(shape, sms)
@@ -382,7 +323,7 @@ def warps_per_block(n: int, k: int, mode: str, batch: int) -> int:
     """The block size the wrapper launches on the current CUDA device (see
     :func:`wave_cost`). Needs the card."""
     sms = torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
-    return _best_warps(_kernel_lib(), n, k, _MODES.index(mode), batch, sms)
+    return _best_warps(n, k, _MODES.index(mode), batch, sms)
 
 
 def launch_shape(n: int, k: int, mode: str, batch: int,
@@ -392,7 +333,7 @@ def launch_shape(n: int, k: int, mode: str, batch: int,
     the card: it builds and asks the library."""
     if warps is None:
         warps = warps_per_block(n, k, mode, batch)
-    return _shape(_kernel_lib(), n, k, _MODES.index(mode), batch, int(warps))
+    return _shape(n, k, _MODES.index(mode), batch, int(warps))
 
 
 def _launch_kernel(inputs: SweepInputs, warps: Optional[int] = None):
@@ -405,8 +346,6 @@ def _launch_kernel(inputs: SweepInputs, warps: Optional[int] = None):
             "on kernel B8 (ops/df_sweep.py, fused_sweep_solve(precision='df32'))."
         )
     device = inputs.y0r.device
-    mode_id = _MODES.index(inputs.mode)
-    lib = _kernel_lib()
     with torch.cuda.device(device):
         if warps is None:
             warps = warps_per_block(n, k, inputs.mode, B)
@@ -414,32 +353,14 @@ def _launch_kernel(inputs: SweepInputs, warps: Optional[int] = None):
     outi = torch.empty_like(outr)
     evalr = torch.zeros((inputs.n_eval, n, B), dtype=torch.float32, device=device)
     evali = torch.zeros_like(evalr)
-
-    def ptr(t):
-        return None if t is None or t.numel() == 0 else t.data_ptr()
-
-    c1, c2 = _step_constants(inputs.dt)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        code = lib.sweep_magnus2_launch(
-            ptr(inputs.statr), ptr(inputs.stati), ptr(inputs.opsr), ptr(inputs.opsi),
-            ptr(inputs.phases), ptr(inputs.coef), ptr(inputs.slots), ptr(inputs.y0r),
-            ptr(inputs.y0i), ptr(outr), ptr(outi), ptr(evalr), ptr(evali),
-            n, k, T, B, inputs.order, mode_id, int(warps), c1, c2, stream,
-        )
-    if code != 0:
-        raise RuntimeError(
-            f"sweep_magnus2 kernel launch failed: {lib.sweep_magnus2_error_string(code).decode()}"
-        )
-    sweep_expm_magnus2.launches += 1
+    _LIB.sweep_magnus2_launch(
+        inputs.statr, inputs.stati, inputs.opsr, inputs.opsi, inputs.phases, inputs.coef,
+        inputs.slots, inputs.y0r, inputs.y0i, outr, outi, evalr, evali,
+        n, k, T, B, inputs.order, _MODES.index(inputs.mode), int(warps),
+        *step_constants(2, inputs.dt),
+    )
     final = torch.complex(outr, outi)
     return final, (torch.complex(evalr, evali) if inputs.n_eval else None)
-
-
-def _step_constants(dt: float) -> Tuple[float, float]:
-    """``dt / 2`` and ``p2 dt^2`` in float64 (each is rounded once to the
-    working dtype where it is used)."""
-    return 0.5 * dt, _P2 * dt * dt
 
 
 # ---------------------------------------------------------------------------
@@ -483,7 +404,7 @@ def sweep_expm_magnus2_plain(inputs: SweepInputs):
     def scalar(x):
         return torch.tensor(x, dtype=real, device=device)
 
-    c1_f, c2_f = _step_constants(inputs.dt)
+    c1_f, c2_f = step_constants(2, inputs.dt)
     c1, c2 = scalar(c1_f), scalar(c2_f)
     statr, stati = inputs.statr[None], inputs.stati[None]
     yr, yi = inputs.y0r.T.contiguous(), inputs.y0i.T.contiguous()  # (B, n)

@@ -18,18 +18,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..unified import default_device, to_tensor
-from .sweep_solver import (
-    _GAUSS3_D1,
-    _GAUSS3_D2,
-    _GAUSS3_D3,
-    _GAUSS_C1,
-    _GAUSS_C2,
-    _M3_C0,
-    _M3_C1,
-    _P2,
-    _TWO_PI,
-    _validate_eval_slots,
-)
+from .magnus_rule import MAGNUS_NODES, TWO_PI, step_constants, validate_eval_slots
 
 __all__ = ["sweep_expm_magnus2_xla"]
 
@@ -79,16 +68,15 @@ def sweep_expm_magnus2_xla(
     n_eval = 0
     slots = None
     if eval_slots is not None:
-        n_eval = _validate_eval_slots(eval_slots, T)
+        n_eval = validate_eval_slots(eval_slots, T)
         slots = [int(s) for s in eval_slots]
 
-    c1 = 0.5 * dt
-    c2 = _P2 * dt * dt
+    nodes = MAGNUS_NODES[magnus_order].tolist()
 
     def phase(step, gauss_c):
         """(n, n) frame phase ``exp(i omega tau)``, tau = t0 + (step + c) dt,
         formed in float64 and reduced mod 2 pi."""
-        ph = torch.fmod(omega * (t0 + (step + gauss_c) * dt), _TWO_PI)
+        ph = torch.fmod(omega * (t0 + (step + gauss_c) * dt), TWO_PI)
         return torch.exp(1j * ph).to(cplx)
 
     def generator(coef_g, ph):
@@ -105,16 +93,16 @@ def sweep_expm_magnus2_xla(
         return P - Bm @ A
 
     def magnus_matrix(step, coef_step):
+        gens = [generator(coef_step[g], phase(step, c)) for g, c in enumerate(nodes)]
         if magnus_order == 2:
-            G1 = generator(coef_step[0], phase(step, _GAUSS_C1))
-            G2 = generator(coef_step[1], phase(step, _GAUSS_C2))
+            c1, c2 = step_constants(2, dt)
+            G1, G2 = gens
             return c1 * (G1 + G2) + c2 * comm(G2, G1)
-        G1 = generator(coef_step[0], phase(step, _GAUSS3_D1))
-        G2 = generator(coef_step[1], phase(step, _GAUSS3_D2))
-        G3 = generator(coef_step[2], phase(step, _GAUSS3_D3))
-        a1 = dt * G2
-        a2 = (_M3_C0 * dt) * (G3 - G1)
-        a3 = (_M3_C1 * dt) * (G3 - 2.0 * G2 + G1)
+        G1, G2, G3 = gens
+        dtf, c0dt, c1dt = step_constants(3, dt)
+        a1 = dtf * G2
+        a2 = c0dt * (G3 - G1)
+        a3 = c1dt * (G3 - 2.0 * G2 + G1)
         C1 = comm(a1, a2)
         C2 = comm(2.0 * a3 + C1, a1) / 60.0
         return a1 + a3 / 12.0 + comm(-20.0 * a1 - a3 + C1, a2 + C2) / 240.0

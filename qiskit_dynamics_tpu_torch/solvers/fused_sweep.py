@@ -48,10 +48,10 @@ import torch
 from ..exceptions import DynamicsError
 from ..models import GeneratorModel, LindbladModel
 from ..models.operator_collections import OperatorCollection, VectorizedLindbladCollection
-from ..ops.sweep_solver import gauss_nodes
+from ..ops.magnus_rule import MAGNUS_NODES, step_constants
 from ..signals import Signal, SignalList
 from ..unified import is_tensor, to_numpy, to_tensor
-from ..utils import metrics
+from ..utils import lru, metrics
 from ..utils.metrics import annotate_call, span
 from .fixed_step_solvers import get_fixed_step_sizes
 
@@ -317,15 +317,8 @@ def fused_sweep_solve(
     )
 
     with span("sweep.tables"):
-        # Gauss-time signal samples for the whole batch, float64 at absolute times
-        gauss_times = torch.as_tensor(
-            t0 + dt * (np.arange(n_steps)[:, None] + np.array(gauss_nodes(magnus_order))[None, :]),
-            device=device,
-        )
-        params = _tree_map(lambda x: to_tensor(x, device=device), params)
-        coeffs = torch.movedim(
-            torch.func.vmap(lambda p: signals_as_list(p)(gauss_times))(params), 0, -1
-        ).to(device=device, dtype=torch.float32)  # (T, n_gauss, k, B)
+        gauss_times = t0 + dt * (np.arange(n_steps)[:, None] + MAGNUS_NODES[magnus_order][None, :])
+        coeffs = _gauss_table(signals_as_list, params, gauss_times, device, torch.float32)
     annotate_call(engine=sweep_engine, members=coeffs.shape[-1])
     hermitian = _all_anti_hermitian(model)
 
@@ -406,6 +399,17 @@ def fused_sweep_solve(
                           vectorized_lindblad)
 
 
+def _gauss_table(signals_as_list, params, gauss_times: np.ndarray, device, dtype) -> torch.Tensor:
+    """The (T, n_nodes, k, B) signal values of every member at the absolute
+    Gauss times ``gauss_times`` (T, n_nodes), sampled in float64 in one
+    ``torch.func.vmap`` pass on ``device``, in ``dtype``."""
+    times = torch.as_tensor(gauss_times, device=device)
+    params = _tree_map(lambda x: to_tensor(x, device=device), params)
+    return torch.movedim(
+        torch.func.vmap(lambda p: signals_as_list(p)(times))(params), 0, -1
+    ).to(device=device, dtype=dtype)
+
+
 def _collect_solve(model, yf, traj, y0_cols, want_traj: bool, include_t0: bool, B: int, m: int,
                    vectorized_lindblad: bool):
     """Frame-basis lanes (and trajectory) -> the standard-basis result of
@@ -440,7 +444,7 @@ def _adaptive_df_grid(
     """
     from scipy.linalg import expm
 
-    from ..ops.df_sweep import MAGNUS_NODES, _step_consts, magnus_operator
+    from ..ops.df_sweep import magnus_operator
 
     nodes = MAGNUS_NODES[magnus_order]
     static_t, ops_t = (torch.as_tensor(to_numpy(x), dtype=torch.complex128)
@@ -455,7 +459,7 @@ def _adaptive_df_grid(
     def magnus_m(sig, t, dt):
         taus = t + nodes * dt
         coef = np.stack([np.atleast_1d(to_numpy(sig(tau)).astype(float)) for tau in taus])
-        step = np.array(_step_consts(magnus_order, np.array([dt])))[:, 0]
+        step = np.array(step_constants(magnus_order, dt))
         return magnus_operator(
             static_t, ops_t, omega_t, torch.as_tensor(taus), torch.as_tensor(step),
             torch.as_tensor(coef)[..., None], magnus_order, hermitian=False,
@@ -559,7 +563,7 @@ def _fused_sweep_solve_df(
     """df32 branch of :func:`fused_sweep_solve`: the coefficient table in
     float64 on the model's device (one vmapped pass at the Gauss times of the
     grid ``dts``), then kernel B8 (the plain version for a CPU model)."""
-    from ..ops.df_sweep import MAGNUS_NODES, sweep_expm_magnus_df
+    from ..ops.df_sweep import sweep_expm_magnus_df
 
     if torch.is_grad_enabled() and any(
         is_tensor(x) and x.requires_grad for x in _leaves(params)
@@ -574,17 +578,12 @@ def _fused_sweep_solve_df(
             "limited by that representation. Build the model with dtype=torch.complex128.",
             stacklevel=3,
         )
-    device = model.device
     t_start = t0 + np.concatenate([[0.0], np.cumsum(dts)[:-1]])
-    gauss_times = torch.as_tensor(
-        t_start[:, None] + dts[:, None] * MAGNUS_NODES[magnus_order][None, :], device=device
-    )
-    params = _tree_map(lambda x: to_tensor(x, device=device), params)
+    gauss_times = t_start[:, None] + dts[:, None] * MAGNUS_NODES[magnus_order][None, :]
     with torch.no_grad():
         with span("sweep.tables"):
-            coeffs = torch.movedim(
-                torch.func.vmap(lambda p: signals_as_list(p)(gauss_times))(params), 0, -1
-            ).to(torch.float64)  # (T, n_nodes, k, B)
+            coeffs = _gauss_table(signals_as_list, params, gauss_times, model.device,
+                                  torch.float64)
         annotate_call(engine="df32", members=coeffs.shape[-1])
         with span("sweep.lanes"):
             coeffs, y0_cols, B, m = _expand_lanes(coeffs, y0_fb, y0_fb.shape[0], 1)
@@ -786,10 +785,12 @@ def sweep_arguments(
 
 
 def _solve_eagerly(plan, params):
-    from ..ops.adaptive_sweep import sweep_dopri5_lockstep
-
-    args, kwargs, collect = plan.arguments(params)
-    return collect(sweep_dopri5_lockstep(*args, **kwargs))
+    """The plan's device chain run once, with no graph: the CPU path, a
+    fallback, and a miss before its capture."""
+    members = len(next(_leaves(params)))
+    annotate_call(engine="adaptive", members=members)
+    plan.prepare(members)
+    return plan.run(params)
 
 
 def _dense_generator(model) -> bool:
@@ -1022,7 +1023,7 @@ class _AdaptivePlan:
         planes: tables, lanes, B1 and the collector, with no readback, no
         upload and no allocation whose size depends on values (so that a
         CUDA graph can hold it)."""
-        from ..ops.adaptive_sweep import _launch_kernel, with_envelopes
+        from ..ops.adaptive_sweep import sweep_prepared, with_envelopes
 
         with span("sweep.tables"):
             amps = self.tables(params)
@@ -1031,7 +1032,7 @@ class _AdaptivePlan:
         with span("sweep.prepare"):
             inputs = with_envelopes(self.inputs, amps)
         with span("sweep.engine", tile_b=inputs.tile_b, lanes=inputs.batch):
-            final, traj, _ = _launch_kernel(inputs, False)
+            final, traj, _ = sweep_prepared(inputs)
         with span("sweep.collect"):
             return self.collect(final if traj is None else (final, traj), y0_cols, B, m,
                                 inv_order)
@@ -1045,26 +1046,19 @@ class _SweepGraph:
     """One call shape's device chain (:meth:`_AdaptivePlan.run`) as a CUDA
     graph. :meth:`replay` copies the parameters into the graph's own input,
     replays it and returns a copy of its output (callers keep results across
-    calls). A capture launches nothing: the kernels run at each replay."""
+    calls). A capture launches nothing: the kernels run at each replay, which
+    counts B1's launch as the boundary counts an eager one."""
 
     def __init__(self, plan: _AdaptivePlan, params, refs):
-        from ..ops.adaptive_sweep import sweep_dopri5_lockstep
-
         self.plan, self.refs = plan, refs  # refs: what the key names by identity
         self.params = _tree_map(lambda x: x.detach().clone(), params)
         self.graph = torch.cuda.CUDAGraph()
-        launches = sweep_dopri5_lockstep.launches
-        try:
-            with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
-                self.out = plan.run(self.params, span=_no_span)
-        finally:
-            sweep_dopri5_lockstep.launches = launches
+        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+            self.out = plan.run(self.params, span=_no_span)
         self.lock = threading.Lock()
         self.done = torch.cuda.Event()  # the last replay's output copied
 
     def replay(self, params) -> torch.Tensor:
-        from ..ops.adaptive_sweep import sweep_dopri5_lockstep
-
         with self.lock:
             stream = torch.cuda.current_stream(self.out.device)
             stream.wait_event(self.done)
@@ -1073,7 +1067,7 @@ class _SweepGraph:
             self.graph.replay()
             out = self.out.clone()
             self.done.record(stream)
-        sweep_dopri5_lockstep.launches += 1
+        metrics.count("kernel.launches.adaptive_sweep_launch", always=True)
         return out
 
 
@@ -1115,10 +1109,9 @@ def _graph_key(model, signals_fn, params, t_span, y0, options, baked, counting: 
     adds its steps into the metrics' device counters (their pointer is baked
     into the graph); last, ``baked``, the carriers and phases that the host
     probe found (:func:`_baked`; ``None``: the key without them)."""
-    from ..ops.polynomial_sweep import _operand_key
 
     def operand(x):
-        return None if x is None else _operand_key(x)
+        return None if x is None else lru.operand_key(x)
 
     coll, frame = model._operator_collection, model.rotating_frame
     t_eval = options["t_eval"]
@@ -1147,9 +1140,7 @@ def _baked(probe) -> tuple:
 def _latest_entry(base: tuple):
     """The most recently used entry of :data:`_GRAPHS` whose key is ``base``
     and any baked carriers and phases, as ``(baked, entry)``, or ``None``."""
-    from ..ops.polynomial_sweep import _CACHE_LOCK
-
-    with _CACHE_LOCK:
+    with lru.LOCK:
         for key in reversed(_GRAPHS):
             if key[:-1] == base:
                 _GRAPHS.move_to_end(key)
@@ -1169,7 +1160,6 @@ def _graph_solve(model, signals_fn, params, t_span, y0, options):
     ``sweep.graph_hits``, ``_misses``, ``_fallbacks``.
     """
     from ..ops.adaptive_sweep import STEP_COUNTERS
-    from ..ops.polynomial_sweep import _lru_put
 
     t0, tf = _time_span(t_span, "fused_adaptive_sweep_solve")
     params = _tree_map(lambda x: to_tensor(x, device=model.device), params)
@@ -1200,10 +1190,7 @@ def _graph_solve(model, signals_fn, params, t_span, y0, options):
     if latest is not None and isinstance(latest[1], _Eager) and key[-1] == latest[0]:
         metrics.count("sweep.graph_fallbacks")
         return _solve_eagerly(plan, params)
-    members = next(_leaves(params)).shape[0]
-    annotate_call(engine="adaptive", members=members)
-    plan.prepare(members)
-    out = plan.run(params)
+    out = _solve_eagerly(plan, params)
     refs = _graph_refs(model, signals_fn, y0, options)
     entry = _Eager(refs)
     if plan.host_constants:
@@ -1213,7 +1200,7 @@ def _graph_solve(model, signals_fn, params, t_span, y0, options):
             pass
     metrics.count("sweep.graph_misses" if isinstance(entry, _SweepGraph)
                   else "sweep.graph_fallbacks")
-    _lru_put(_GRAPHS, key, entry)
+    lru.put(_GRAPHS, key, entry)
     return out
 
 

@@ -107,8 +107,8 @@ def shape_text(shape):
 
 
 def by_part():
-    lib = asw._kernel_lib()
-    report = Path(lib._name + ".ptxas.txt")
+    lib = asw._LIB
+    report = Path(lib.path + ".ptxas.txt")
     lines = report.read_text().splitlines() if report.exists() else []
     print("ptxas: " + " | ".join(
         line.strip() for line in lines
@@ -121,7 +121,7 @@ def by_part():
     base, _, record = asw._launch_kernel(x, True, steps_out=steps)
     twin, _, twin_record = asw.sweep_dopri5_lockstep_plain(x, record_steps=True)
     accepted = (record > 0).sum(dim=1).cpu().numpy()
-    bound_ms, bound_by = smoke.bound(smoke.b1_work(n, k, x.tile_b, accepted),
+    bound_ms, bound_by = smoke.bound(smoke.adaptive_dopri5.flops(n, k, x.tile_b, accepted),
                                      4 * (2 * k * x.batch + 4 * n * x.batch))
     most = int(steps.max())
     print(f"B1 at the main row ({x.batch} lanes x n = {n}, k = {k}, tile_b {x.tile_b}, {tiles} "

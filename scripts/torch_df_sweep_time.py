@@ -110,15 +110,15 @@ def turn(label):
 
 
 def by_part():
-    lib = dfs._kernel_lib()
-    report = Path(lib._name + ".ptxas.txt")
+    lib = dfs._LIB
+    report = Path(lib.path + ".ptxas.txt")
     lines = report.read_text().splitlines() if report.exists() else []
     print("ptxas: " + " | ".join(
         line.strip() for line in lines
         if "entry function" in line or "registers" in line or "spill" in line), flush=True)
     shape = dfs.launch_shape(N, K, 3, True, CHUNK)
     blocks = lib.df_magnus_sweep_active_blocks(N, K, 3, 1, shape.members_per_block)
-    print(f"B8 at the row: {smoke.sass_count(lib._name, 'DMMA')} DMMA instructions in the "
+    print(f"B8 at the row: {smoke.sass_count(lib.path, 'DMMA')} DMMA instructions in the "
           f"library's SASS; {shape.members_per_block} member(s) per block, {blocks} blocks "
           f"resident per SM = {blocks * shape.members_per_block} members and warps per SM "
           f"(shared-memory reckoning {shape.members_per_sm}, {shape.smem_bytes} B per block); "

@@ -99,7 +99,7 @@ def turn(label):
     for members, n in SHAPES:
         planes = planes_for(members, n)
         ms = event_ms(lambda: hp._launch_kernel(*planes, ORDER))
-        route = "resident" if hp._kernel_lib().horner_apply_cluster(n) else "streaming"
+        route = "resident" if hp._LIB.horner_apply_cluster(n) else "streaming"
         print(f"B4 B={members} n={n} order {ORDER} ({route}), {label}: {ms:.3f} ms", flush=True)
         del planes
 
@@ -110,8 +110,8 @@ def fit(orders, times):
 
 
 def by_part():
-    lib = hp._kernel_lib()
-    report = Path(lib._name + ".ptxas.txt")
+    lib = hp._LIB
+    report = Path(lib.path + ".ptxas.txt")
     print("ptxas: " + " | ".join(
         line.strip() for line in (report.read_text().splitlines() if report.exists() else [])
         if "entry function" in line or "registers" in line or "spill" in line), flush=True)

@@ -33,7 +33,7 @@ from qiskit_dynamics_tpu_torch.benchmarks import (  # noqa: E402
 from qiskit_dynamics_tpu_torch.ops.member_sweep import sweep_expm_magnus2_member  # noqa: E402
 from qiskit_dynamics_tpu_torch.ops.polynomial_sweep import sweep_expm_magnus_poly  # noqa: E402
 from qiskit_dynamics_tpu_torch.solvers.fixed_step_solvers import get_fixed_step_sizes  # noqa: E402
-from qiskit_dynamics_tpu_torch.ops.sweep_solver import gauss_nodes  # noqa: E402
+from qiskit_dynamics_tpu_torch.ops.magnus_rule import MAGNUS_NODES  # noqa: E402
 from qiskit_dynamics_tpu_torch.solvers.fused_sweep import (  # noqa: E402
     _extract_generator_data,
     fused_sweep_solve,
@@ -46,7 +46,7 @@ def float64_sweep(solver, rho0, carrier, amps, t_final, max_dt, magnus, engine):
     _, dim, static, ops, omega, t0, tf = _extract_generator_data(model, (0.0, t_final), "truncation")
     _, h, steps = get_fixed_step_sizes((t0, tf), None, max_dt)
     steps, dt = int(steps[0]), float(h[0])
-    times = torch.as_tensor(t0 + dt * (np.arange(steps)[:, None] + np.array(gauss_nodes(magnus))[None, :]))
+    times = torch.as_tensor(t0 + dt * (np.arange(steps)[:, None] + MAGNUS_NODES[magnus][None, :]))
     amps = torch.as_tensor(amps, dtype=torch.float64)
     coef = torch.stack([Signal(a, carrier_freq=carrier)(times) for a in amps], dim=-1)[:, :, None]
     rho_fb = model.rotating_frame.operator_into_frame_basis(rho0)

@@ -65,7 +65,6 @@ if ARGS.rows_from:
 import chip_smoke as smoke  # noqa: E402
 from qiskit_dynamics_tpu_torch import Signal  # noqa: E402
 from qiskit_dynamics_tpu_torch.benchmarks import lindblad_qudit_solver  # noqa: E402
-from qiskit_dynamics_tpu_torch.kernels import _build  # noqa: E402
 from qiskit_dynamics_tpu_torch.ops import member_sweep as msw  # noqa: E402
 
 
@@ -126,14 +125,14 @@ def rows_only(label):
 def control():
     """The bracket-dominated check on the kernel as built and on the
     single-pass TF32 control build."""
-    load = _build.load
+    default = msw._LIB
     for name, defines in (("3xTF32 (as built)", ()),
                           ("single-pass TF32 control", ("MEMBER_SWEEP_ONE_PASS_TF32",))):
-        _build.load = lambda lib, defines=defines: load(lib, defines)
+        msw._LIB = default.variant(*defines)
         try:
             diffs = smoke.b3_bracket_diffs(torch, msw)
         finally:
-            _build.load = load
+            msw._LIB = default
         worst = max(diff for _, diff in diffs)
         print(f"B3 bracket-dominated vs complex128, {name}: max {worst:.3e} "
               f"({'exceeds' if worst > smoke.B3_BRACKET_TOL else 'within'} "
@@ -159,8 +158,8 @@ def main():
         control()
         print(smi)
         return
-    lib = msw._kernel_lib()
-    report = Path(lib._name + ".ptxas.txt")
+    lib = msw._LIB
+    report = Path(lib.path + ".ptxas.txt")
     print("ptxas: " + " | ".join(
         line.strip() for line in (report.read_text().splitlines() if report.exists() else [])
         if "registers" in line or "spill" in line or "smem" in line), flush=True)

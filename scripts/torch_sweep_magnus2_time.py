@@ -35,7 +35,6 @@ inputs. Run from the root of a checkout:
 Needs one NVIDIA GPU and nvcc (about a minute; with ``--ab`` about two).
 """
 import argparse
-import ctypes
 import dataclasses
 import importlib.util
 import subprocess
@@ -96,11 +95,9 @@ PARTS = ("coefficients", "generators", "products and M", "Horner", "rest")
 def cycles_by_part(inputs):
     """Thread 0's cycles per step by part, from one launch of a build with
     ``-DB2_PROFILE`` (clock64 between the parts of the step)."""
-    lib = ssw._kernel_lib(("B2_PROFILE",))
-    lib.sweep_magnus2_profile.argtypes = [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int]
-    out = (ctypes.c_longlong * len(PARTS))()
-    default = ssw._kernel_lib
-    ssw._kernel_lib = lambda defines=(): default(("B2_PROFILE",))
+    default = ssw._LIB
+    lib = ssw._LIB = default.variant("B2_PROFILE")
+    out = torch.zeros(len(PARTS), dtype=torch.int64)
     try:
         ssw._launch_kernel(inputs)  # warm-up
         torch.cuda.synchronize()
@@ -109,8 +106,8 @@ def cycles_by_part(inputs):
         torch.cuda.synchronize()
         lib.sweep_magnus2_profile(out, 0)
     finally:
-        ssw._kernel_lib = default
-    per_step = [v / inputs.steps for v in out]
+        ssw._LIB = default
+    per_step = [v / inputs.steps for v in out.tolist()]
     total = sum(per_step)
     return ", ".join(f"{name} {c:.0f} ({c / total:.0%})" for name, c in zip(PARTS, per_step))
 
@@ -131,7 +128,7 @@ def by_part():
         eager_ms = smoke.eager_engine_ms(torch, inputs)
         blocks = []
         for w in range(1, ssw.MAX_WARPS_PER_BLOCK + 1):
-            if ssw._kernel_lib().sweep_magnus2_smem_bytes(n, k, ssw._MODES.index(mode), w) \
+            if ssw._LIB.sweep_magnus2_smem_bytes(n, k, ssw._MODES.index(mode), w) \
                     > ssw.MAX_SHARED_BYTES:
                 break
             s = ssw.launch_shape(n, k, mode, members, warps=w)

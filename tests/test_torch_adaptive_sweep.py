@@ -25,6 +25,7 @@ from qiskit_dynamics_tpu.ops.adaptive_sweep import sweep_dopri5_lockstep as jax_
 from qiskit_dynamics_tpu.solvers.fused_sweep import _expand_lanes as jax_expand_lanes
 
 from qiskit_dynamics_tpu_torch.kernels import _build
+from qiskit_dynamics_tpu_torch.kernels import launches
 from qiskit_dynamics_tpu_torch.ops import rk_tableaus
 from qiskit_dynamics_tpu_torch.ops import adaptive_sweep as asw
 from qiskit_dynamics_tpu_torch.ops import batched_linalg, chain_apply, df_sweep
@@ -159,12 +160,12 @@ def test_tableau_matches_jax_and_cuda_source():
 def test_cpu_tensors_take_the_twin(problem):
     """On CPU tensors the wrapper runs the eager twin and launches nothing."""
     p = problem
-    before = sweep_dopri5_lockstep.launches
+    before = launches("adaptive_sweep_launch")
     args = (p["static"], p["ops"], p["omega"], p["freqs"], p["amps"], torch.as_tensor(p["y0"]))
     out = sweep_dopri5_lockstep(*args, tf=0.5, atol=TOL, rtol=TOL, tile_b=TILE_B)
     inputs = prepare_inputs(*args, tf=0.5, atol=TOL, rtol=TOL, tile_b=TILE_B)
     twin, traj, rec = sweep_dopri5_lockstep_plain(inputs)
-    assert sweep_dopri5_lockstep.launches == before
+    assert launches("adaptive_sweep_launch") == before
     assert traj is None and rec is None
     np.testing.assert_array_equal(out.numpy(), twin.numpy())
 

@@ -22,9 +22,12 @@ import numpy as np
 import pytest
 import torch
 
+from qiskit_dynamics_tpu_torch.kernels import launches
 from qiskit_dynamics_tpu_torch.ops import batched_linalg as bl
 from qiskit_dynamics_tpu_torch.ops import chain_apply as ca
 from qiskit_dynamics_tpu_torch.ops import df_sweep as dfs
+
+B8 = ("df_magnus_sweep_launch", "df_magnus_wide_launch")  # kernel B8's two sweeps
 
 pytestmark = pytest.mark.cuda
 
@@ -93,7 +96,7 @@ def test_dmma_product_matches_matmul(cuda, n, mode):
 def test_launch_shape_matches_library(cuda):
     """The wrapper's shared-memory reckoning is the library's, and at the df32
     row's shape the card holds more than 8 members per SM."""
-    lib = dfs._kernel_lib()
+    lib = dfs._LIB
     for n in (2, 8, 9, 16, 17, 24, 27, 32):
         for k in (0, 1, 2, 5):
             for nn in (2, 3):
@@ -114,10 +117,10 @@ def test_df_sweep_kernel_matches_plain(cuda, n, magnus_order, hermitian, uniform
     kwargs.update(hermitian=hermitian, chunk_b=16)  # three launches, the last ragged
     if slots:
         kwargs["eval_slots"] = tuple(s // 4 if s % 4 == 3 else -1 for s in range(STEPS))
-    before = dfs.sweep_expm_magnus_df.launches
+    before = launches(*B8)
     out = dfs.sweep_expm_magnus_df(*args, **kwargs)
     torch.cuda.synchronize()
-    assert dfs.sweep_expm_magnus_df.launches == before + 3
+    assert launches(*B8) == before + 3
     inputs = dfs.prepare_df_inputs(*args, **{k: v for k, v in kwargs.items() if k != "chunk_b"})
     plain, plain_traj = dfs.sweep_expm_magnus_df_plain(inputs)
     got = out if not slots else out[0]
@@ -135,9 +138,9 @@ def test_df_sweep_member_counts(cuda, members):
     full chunk of 2,048 (two launches, the second of one member)."""
     args, kwargs = df_problem(16, 3, True, cuda, members=members, steps=6)
     kwargs["hermitian"] = True
-    before = dfs.sweep_expm_magnus_df.launches
+    before = launches(*B8)
     assert_matches_plain(args, kwargs)
-    assert dfs.sweep_expm_magnus_df.launches == before + -(-members // 2048)
+    assert launches(*B8) == before + -(-members // 2048)
 
 
 @pytest.mark.parametrize("hermitian", [False, True])
@@ -192,10 +195,10 @@ def test_df_sweep_wide_kernel_matches_plain(cuda, n, magnus_order, hermitian, un
     kwargs.update(hermitian=hermitian, chunk_b=16)  # three launches, the last ragged
     if slots:
         kwargs["eval_slots"] = tuple(s // 2 if s % 2 == 1 else -1 for s in range(6))
-    before = dfs.sweep_expm_magnus_df.launches
+    before = launches(*B8)
     out = dfs.sweep_expm_magnus_df(*args, **kwargs)
     torch.cuda.synchronize()
-    assert dfs.sweep_expm_magnus_df.launches == before + 3
+    assert launches(*B8) == before + 3
     inputs = dfs.prepare_df_inputs(*args, **{k: v for k, v in kwargs.items() if k != "chunk_b"})
     plain, plain_traj = dfs.sweep_expm_magnus_df_plain(inputs)
     got = out if not slots else out[0]
@@ -225,10 +228,10 @@ def test_df32_lindblad_sweep_past_32(cuda):
         return fused_sweep_solve(solver.model, signals_fn, amps, (0.0, 2.0), 0.1, rho0,
                                  precision="df32")
 
-    before = dfs.sweep_expm_magnus_df.launches
+    before = launches(*B8)
     got = run(cuda)
     torch.cuda.synchronize()
-    assert dfs.sweep_expm_magnus_df.launches == before + 1
+    assert launches(*B8) == before + 1
     want = run("cpu")
     assert got.device.type == "cuda" and got.shape == want.shape == (9, 6, 6)
     assert float((got.cpu() - want).abs().max()) <= TOL
@@ -251,10 +254,10 @@ def test_chain_kernel_complex128_bitwise(cuda, n, B, T):
     props = torch.as_tensor(unitary_stack(gen, T, n, B), device=cuda)
     y0 = gen.normal(size=(n, B)) + 1j * gen.normal(size=(n, B))
     y0 = torch.as_tensor(y0 / np.linalg.norm(y0, axis=0), device=cuda)
-    before = ca.chain_apply_bol.launches
+    before = launches("chain_apply_launch")
     out = ca.chain_apply_bol(props, y0)
     torch.cuda.synchronize()
-    assert ca.chain_apply_bol.launches == before + 1
+    assert launches("chain_apply_launch") == before + 1
     assert out.dtype == torch.complex128
     assert torch.equal(out, ca.chain_apply_bol_plain(props, y0))
 
@@ -266,10 +269,10 @@ def test_expm_kernel_complex128_matches_plain(cuda, n, order, squarings):
     x = gen.normal(size=(2, n, n, 1000))
     x = x / np.sqrt((x**2).sum(axis=(0, 1, 2), keepdims=True))
     planes = [torch.as_tensor(p, device=cuda) for p in x]
-    before = bl.expm_taylor_bol.launches
+    before = launches("expm_bol_launch")
     pr, pi = bl.expm_taylor_bol(*planes, order, squarings)
     torch.cuda.synchronize()
-    assert bl.expm_taylor_bol.launches == before + 1
+    assert launches("expm_bol_launch") == before + 1
     assert pr.dtype == torch.float64
     want = bl.expm_taylor_bol_plain(*planes, order, squarings)
     assert max(float((g - w).abs().max()) for g, w in zip((pr, pi), want)) <= TOL

@@ -29,8 +29,10 @@ import qiskit_dynamics_tpu_torch as port
 from qiskit_dynamics_tpu_torch import Signal
 from qiskit_dynamics_tpu_torch.benchmarks import cr_solver
 from qiskit_dynamics_tpu_torch.exceptions import DynamicsError
-from qiskit_dynamics_tpu_torch.ops import df_sweep as dfs
+from qiskit_dynamics_tpu_torch.kernels import launches
 from qiskit_dynamics_tpu_torch.solvers import fused_sweep_solve
+
+B8 = ("df_magnus_sweep_launch", "df_magnus_wide_launch")  # kernel B8's two sweeps
 
 T_SPAN = (0.0, 5.0)
 MAX_DT = 0.025
@@ -83,10 +85,10 @@ def test_df32_matches_jax(cr_pair, case):
         jsolver.model, _signals(JaxSignal, w1, gaussian), AMPS,
         rwa_signal_map=jsolver._rwa_signal_map, **kw,
     ))
-    before = dfs.sweep_expm_magnus_df.launches
+    before = launches(*B8)
     out = tsolver.solve_sweep(_signals(Signal, w1, gaussian), torch.as_tensor(AMPS),
                               method="fused_magnus2", **kw)
-    assert dfs.sweep_expm_magnus_df.launches == before  # CPU model: the plain version
+    assert launches(*B8) == before  # CPU model: the plain version
     assert out.dtype == torch.complex128 and out.shape == expected.shape
     np.testing.assert_allclose(to_np(out), expected, rtol=0, atol=1e-10)
 

@@ -21,7 +21,10 @@ from torch_parity import assert_rel_close, random_hermitian, rng
 from qiskit_dynamics_tpu.ops.df_sweep import MAGNUS_NODES as JAX_NODES
 from qiskit_dynamics_tpu.ops.df_sweep import sweep_expm_magnus_df as jax_df
 
+from qiskit_dynamics_tpu_torch.kernels import launches
 from qiskit_dynamics_tpu_torch.ops import df_sweep as dfs
+
+B8 = ("df_magnus_sweep_launch", "df_magnus_wide_launch")  # kernel B8's two sweeps
 
 N, K, R, B, T = 4, 2, 2, 8, 40
 T0 = 0.5
@@ -87,9 +90,9 @@ def test_plain_matches_jax_xla(problem, magnus_order, hermitian, eval_slots, dt_
     args = (p["static"], p["ops"], p["omega"], coefficients)
     expected = jax_df(*args, p["y0"], chunk_b=B, fast_commutators=False, horner_df_tail=0,
                       **kwargs)
-    before = dfs.sweep_expm_magnus_df.launches
+    before = launches(*B8)
     out = dfs.sweep_expm_magnus_df(*args, torch.as_tensor(p["y0"]), chunk_b=3, **kwargs)
-    assert dfs.sweep_expm_magnus_df.launches == before  # CPU tensors: the plain version
+    assert launches(*B8) == before  # CPU tensors: the plain version
     if eval_slots is None:
         out, expected = (out,), (expected,)
     for got, want in zip(out, expected):

@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+from qiskit_dynamics_tpu_torch.kernels import launches
 from qiskit_dynamics_tpu_torch.ops import batched_linalg as bl
 from qiskit_dynamics_tpu_torch.ops import chain_apply as ca
 from qiskit_dynamics_tpu_torch.ops import expm_chain_pallas as ecp
@@ -64,11 +65,11 @@ def test_expm_chain_kernel_matches_plain(cuda, n, m, b, dtype):
     gens, y0 = unitary_chain(np.random.default_rng(n + b), 6, b, n, m)
     gens = torch.as_tensor(gens, device=cuda).to(dtype)
     y0 = torch.as_tensor(y0, device=cuda).to(dtype)
-    before = ecp.expm_chain_fused.launches
+    before = launches("expm_chain_launch")
     out = ecp.expm_chain_fused(gens, 0.9, y0, order=12, squarings=1)
     plain = ecp.expm_chain_fused_plain(gens, 0.9, y0, order=12, squarings=1)
     torch.cuda.synchronize()
-    assert ecp.expm_chain_fused.launches == before + 1
+    assert launches("expm_chain_launch") == before + 1
     assert out.shape == (b, n, m) and out.dtype == dtype and out.device.type == "cuda"
     assert float((out - plain).abs().max()) <= B9_TOL[dtype]
 
@@ -117,18 +118,18 @@ def test_wide_chain_kernel_bitwise(cuda, n, dtype):
     y0 = gen.normal(size=(n, B)) + 1j * gen.normal(size=(n, B))
     y0 = torch.as_tensor(y0 / np.linalg.norm(y0, axis=0), device=cuda)
     props, y0 = props.to(dtype), y0.to(dtype)
-    before = ca.chain_apply_bol.launches
+    before = launches("chain_apply_launch")
     out = ca.chain_apply_bol(props, y0)
     plain = ca.chain_apply_bol_plain(props, y0)
     torch.cuda.synchronize()
-    assert ca.chain_apply_bol.launches == before + 1
+    assert launches("chain_apply_launch") == before + 1
     assert torch.equal(out, plain)
 
 
 @pytest.mark.parametrize("n", WIDE_DIMS)
 def test_wide_batched_linalg_kernels(cuda, n):
-    before = (bl.matmul_bol.launches, bl.expm_taylor_bol.launches,
-              bl.expm_taylor_bol_bwd.launches)
+    before = (launches("matmul_bol_launch"), launches("expm_bol_launch"),
+              launches("expm_bwd_bol_launch"))
     planes = unit_planes(np.random.default_rng(n), n, 37, cuda, count=4)
     assert max_diff(bl.matmul_bol(*planes), bl.matmul_bol_plain(*planes)) <= 1e-5
     for order, squarings in ((8, 0), (12, 1)):
@@ -142,8 +143,8 @@ def test_wide_batched_linalg_kernels(cuda, n):
     assert max_diff(got, bl.expm_taylor_bol_plain(*planes64, 12, 1)) <= 1e-12
     torch.cuda.synchronize()
     # one product, three expms (two float32, one float64), two backward passes
-    assert (bl.matmul_bol.launches, bl.expm_taylor_bol.launches,
-            bl.expm_taylor_bol_bwd.launches) == (before[0] + 1, before[1] + 3, before[2] + 2)
+    assert (launches("matmul_bol_launch"), launches("expm_bol_launch"),
+            launches("expm_bwd_bol_launch")) == (before[0] + 1, before[1] + 3, before[2] + 2)
 
 
 def test_wide_caps_raise_above_64(cuda):

@@ -47,6 +47,7 @@ from qiskit_dynamics_tpu_torch import Signal, interop
 from qiskit_dynamics_tpu_torch.benchmarks import cr_solver
 from qiskit_dynamics_tpu_torch.exceptions import DynamicsError
 from qiskit_dynamics_tpu_torch.kernels import _build
+from qiskit_dynamics_tpu_torch.kernels import launches
 from qiskit_dynamics_tpu_torch.ops import sweep_solver as ssw
 from qiskit_dynamics_tpu_torch.ops.sweep_ad import sweep_expm_magnus2_ad
 from qiskit_dynamics_tpu_torch.ops.xla_sweep import sweep_expm_magnus2_xla
@@ -211,11 +212,11 @@ def test_fused_sweep_solve_matches_jax(cr_pair, case):
         rwa_signal_map=jsolver._rwa_signal_map, sweep_engine="xla", **kw,
     )
     engine = {"sweep_engine": "xla"} if case == "xla_engine" else {"tile_b": 8}
-    before = ssw.sweep_expm_magnus2.launches
+    before = launches("sweep_magnus2_launch")
     out = tsolver.solve_sweep(
         lambda a: tfn(a, w1), torch.as_tensor(AMPS), method="fused_magnus2", **engine, **kw
     )
-    assert ssw.sweep_expm_magnus2.launches == before  # CPU tensors: the plain version
+    assert launches("sweep_magnus2_launch") == before  # CPU tensors: the plain version
     assert out.shape == np.asarray(expected).shape
     np.testing.assert_allclose(to_np(out), np.asarray(expected), rtol=0, atol=5e-6)
 

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from qiskit_dynamics_tpu_torch.kernels import launches
 from qiskit_dynamics_tpu_torch.ops import adaptive_sweep as asw
 
 pytestmark = pytest.mark.cuda
@@ -50,13 +51,13 @@ def test_kernel_matches_twin(cuda, n, table):
         amps = amps[:, None, :] * torch.linspace(0.2, 1.0, 8, device=cuda)[None, :, None]
         kwargs["env_dt"] = 0.25
     args = (static, ops, omega, freqs, amps, y0)
-    before = asw.sweep_dopri5_lockstep.launches
+    before = launches("adaptive_sweep_launch")
     out, rec = asw.sweep_dopri5_lockstep(*args, record_steps=True, **kwargs)
     twin, _, twin_rec = asw.sweep_dopri5_lockstep_plain(
         asw.prepare_inputs(*args, **kwargs), record_steps=True
     )
     torch.cuda.synchronize()
-    assert asw.sweep_dopri5_lockstep.launches == before + 1
+    assert launches("adaptive_sweep_launch") == before + 1
     assert float((out - twin).abs().max()) <= 1e-5
     np.testing.assert_array_equal(rec.cpu().numpy(), twin_rec.cpu().numpy())
 
@@ -72,11 +73,11 @@ def _forced(cuda, n, members, tile_b, shape, table=False, eval_ts=None, **extra)
     if eval_ts is not None:
         kwargs["eval_ts"] = eval_ts
     inputs = asw.prepare_inputs(static, ops, omega, freqs, amps, y0, **kwargs)
-    before = asw.sweep_dopri5_lockstep.launches
+    before = launches("adaptive_sweep_launch")
     out, traj, rec = asw._launch_kernel(inputs, True, shape=shape)
     twin, twin_traj, twin_rec = asw.sweep_dopri5_lockstep_plain(inputs, record_steps=True)
     torch.cuda.synchronize()
-    assert asw.sweep_dopri5_lockstep.launches == before + 1
+    assert launches("adaptive_sweep_launch") == before + 1
     torch.testing.assert_close(out, twin, rtol=0, atol=0, equal_nan=True)
     if eval_ts is not None:
         torch.testing.assert_close(traj, twin_traj, rtol=0, atol=0, equal_nan=True)
@@ -151,7 +152,7 @@ def test_kernel_large_phase_arguments(cuda, n):
 
 def test_shared_bytes_match_library(cuda):
     """The wrapper's shared-memory reckoning is the library's."""
-    lib = asw._kernel_lib()
+    lib = asw._LIB
     for n, k, stages, threads, lanes in [(16, 2, 6, 512, 8), (33, 2, 3, 1024, 32),
                                          (9, 1, 6, 512, 16), (64, 3, 1, 512, 16)]:
         assert asw.shared_bytes(n, k, stages, threads, lanes) == lib.adaptive_sweep_smem_bytes(

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from qiskit_dynamics_tpu_torch.kernels import launches
 from qiskit_dynamics_tpu_torch.ops import horner_pallas as hp
 from qiskit_dynamics_tpu_torch.ops import member_sweep as msw
 from qiskit_dynamics_tpu_torch.ops import polynomial_sweep as psw
@@ -74,11 +75,11 @@ def horner_problem(n: int, members: int, device):
 def test_member_kernel_matches_plain(cuda, magnus, n, hermitian):
     args = member_problem(n, 37, 5, magnus, hermitian, cuda)  # 37 members: a ragged batch
     kwargs = dict(dt=0.05, t0=0.2, hermitian=hermitian, magnus=magnus)
-    before = msw.sweep_expm_magnus2_member.launches
+    before = launches("member_sweep_launch")
     out = msw.sweep_expm_magnus2_member(*args, **kwargs)
     plain = msw.sweep_expm_magnus2_member_plain(msw.prepare_inputs(*args, **kwargs))
     torch.cuda.synchronize()
-    assert msw.sweep_expm_magnus2_member.launches == before + 1
+    assert launches("member_sweep_launch") == before + 1
     assert out.shape == plain.shape == (n, 37)
     assert float((out - plain).abs().max()) <= TOL
 
@@ -146,11 +147,11 @@ def test_horner_kernel_matches_plain(cuda, n, order):
     the streaming one. 37 members: a batch that is not a multiple of the
     clusters the card co-schedules."""
     planes = horner_problem(n, 37, cuda)
-    before = hp.horner_apply_bm.launches
+    before = launches("horner_apply_launch")
     ur, ui = hp.horner_apply_bm(*planes, order=order)
     plain_r, plain_i = hp.horner_twin_bm(*planes, order=order)
     torch.cuda.synchronize()
-    assert hp.horner_apply_bm.launches == before + 1
+    assert launches("horner_apply_launch") == before + 1
     assert ur.shape == ui.shape == (37, n)
     assert float(torch.maximum((ur - plain_r).abs().max(), (ui - plain_i).abs().max())) <= TOL
 
@@ -172,11 +173,11 @@ def test_horner_kernel_above_1024(cuda, members, n):
     """Dimensions past one thread per output (the kernel refused n > 1,024
     before): the streaming kernel, each thread owning outputs i, i + 1,024."""
     planes = horner_problem(n, members, cuda)
-    before = hp.horner_apply_bm.launches
+    before = launches("horner_apply_launch")
     ur, ui = hp.horner_apply_bm(*planes, order=8)
     plain_r, plain_i = hp.horner_twin_bm(*planes, order=8)
     torch.cuda.synchronize()
-    assert hp.horner_apply_bm.launches == before + 1
+    assert launches("horner_apply_launch") == before + 1
     assert float(torch.maximum((ur - plain_r).abs().max(), (ui - plain_i).abs().max())) <= TOL
 
 
@@ -196,10 +197,10 @@ def test_poly_sweep_auto_route_above_1024(cuda):
     y0 = gen.normal(size=(n, members)) + 1j * gen.normal(size=(n, members))
     y0 = torch.as_tensor(y0 / np.linalg.norm(y0, axis=0), device=cuda)
     coef = torch.as_tensor(coef, device=cuda)
-    before = hp.horner_apply_bm.launches
+    before = launches("horner_apply_launch")
     out = psw.sweep_expm_magnus_poly(static, ops, None, coef, y0, dt=0.1, horner="auto")
     torch.cuda.synchronize()
-    assert hp.horner_apply_bm.launches == before + steps
+    assert launches("horner_apply_launch") == before + steps
     ref = psw.sweep_expm_magnus_poly(static, ops, None, coef, y0, dt=0.1, horner="einsum")
     torch.cuda.synchronize()
     assert out.shape == ref.shape == (n, members)
@@ -248,9 +249,9 @@ def test_poly_sweep_cache_hit_uploads_nothing(cuda, tmp_path):
     first, first_copies = _h2d_copy_bytes(call, tmp_path / "miss.json")
     gather = next(iter(psw._PREPARED_CACHE.values()))[0]
     assert gather.shape[0] == 24
-    before = hp.horner_apply_bm.launches
+    before = launches("horner_apply_launch")
     second, second_copies = _h2d_copy_bytes(call, tmp_path / "hit.json")
-    assert hp.horner_apply_bm.launches == before + steps  # the kernel route
+    assert launches("horner_apply_launch") == before + steps  # the kernel route
     assert max(first_copies) > 1 << 16
     assert max(second_copies, default=0) <= 1 << 16, second_copies
     psw._PREPARED_CACHE.clear()
@@ -285,7 +286,7 @@ def test_horner_kernel_rejects(cuda):
         hp.horner_apply_bm(*[x.double() for x in planes])
     with pytest.raises(ValueError, match="shape mismatch"):
         hp.horner_apply_bm(planes[0], planes[1], planes[2], planes[3][:, :4])
-    n = hp._kernel_lib().horner_apply_max_n() + 1  # 1.7 GB of planes, never filled
+    n = hp._LIB.horner_apply_max_n() + 1  # 1.7 GB of planes, never filled
     big = [torch.empty((1, n, n), device=cuda) for _ in range(2)]
     big += [torch.empty((1, n), device=cuda) for _ in range(2)]
     with pytest.raises(ValueError, match=f"n <= {n - 1}"):

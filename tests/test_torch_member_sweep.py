@@ -38,7 +38,7 @@ from qiskit_dynamics_tpu.solvers import fused_sweep_solve as jax_fused_sweep_sol
 
 from qiskit_dynamics_tpu_torch import Signal, Solver
 from qiskit_dynamics_tpu_torch.exceptions import DynamicsError
-from qiskit_dynamics_tpu_torch.ops import horner_pallas as hp
+from qiskit_dynamics_tpu_torch.kernels import launches
 from qiskit_dynamics_tpu_torch.ops import member_sweep as msw
 from qiskit_dynamics_tpu_torch.ops import sweep_solver as ssw
 from qiskit_dynamics_tpu_torch.ops import xla_sweep
@@ -90,12 +90,12 @@ CONFIGS = [(2, False, True), (2, True, True), (3, False, True), (3, True, True),
 def test_plain_matches_jax_pallas(magnus, hermitian, resident, real, tol):
     expected = jax_member_result(magnus, hermitian, resident)
     p = problem(hermitian)
-    before = msw.sweep_expm_magnus2_member.launches
+    before = launches("member_sweep_launch")
     out = msw.sweep_expm_magnus2_member(
         p["static"], p["ops"], p["omega"], p["coef"][magnus].astype(real),
         torch.as_tensor(p["y0"]), dt=DT, t0=T0, hermitian=hermitian, magnus=magnus,
     )
-    assert msw.sweep_expm_magnus2_member.launches == before  # CPU tensors: the plain version
+    assert launches("member_sweep_launch") == before  # CPU tensors: the plain version
     assert out.dtype == (torch.complex128 if real == np.float64 else torch.complex64)
     assert_rel_close(out, expected, tol)
 
@@ -285,7 +285,7 @@ def test_auto_dispatch_runs_the_chosen_engine(lindblad_pair, monkeypatch):
     fused_sweep_solve(tsolver.model, _tsig, amps, magnus_order=3, **kw)
     fused_sweep_solve(tsolver.model, _tsig, amps, magnus_order=3, t_eval=[0.25, 0.5], **kw)
     assert calls == ["pallas", "member", "xla"]
-    assert hp.horner_apply_bm.launches == msw.sweep_expm_magnus2_member.launches == 0
+    assert launches("horner_apply_launch") == launches("member_sweep_launch") == 0
 
 
 @pytest.mark.parametrize(

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from qiskit_dynamics_tpu_torch.kernels import launches
 from qiskit_dynamics_tpu_torch.ops import batched_linalg as bl
 from qiskit_dynamics_tpu_torch.ops import chain_apply as ca
 
@@ -63,11 +64,11 @@ def test_chain_kernel_matches_plain_bitwise(cuda, n, B, T):
     props = torch.as_tensor(unitary_stack(gen, T, n, B), device=cuda)
     y0 = gen.normal(size=(n, B)) + 1j * gen.normal(size=(n, B))
     y0 = torch.as_tensor(y0 / np.linalg.norm(y0, axis=0), device=cuda).to(torch.complex64)
-    before = ca.chain_apply_bol.launches
+    before = launches("chain_apply_launch")
     out = ca.chain_apply_bol(props, y0)
     plain = ca.chain_apply_bol_plain(props, y0)
     torch.cuda.synchronize()
-    assert ca.chain_apply_bol.launches == before + 1
+    assert launches("chain_apply_launch") == before + 1
     assert out.shape == (n, B)
     assert torch.equal(out, plain)
 
@@ -118,11 +119,11 @@ def test_chain_kernel_rejects(cuda):
 @pytest.mark.parametrize("n", DIMS)
 def test_matmul_kernel_matches_plain(cuda, n, B):
     planes = unit_planes(np.random.default_rng(n), n, B, cuda, count=4)
-    before = bl.matmul_bol.launches
+    before = launches("matmul_bol_launch")
     out = bl.matmul_bol(*planes)
     plain = bl.matmul_bol_plain(*planes)
     torch.cuda.synchronize()
-    assert bl.matmul_bol.launches == before + 1
+    assert launches("matmul_bol_launch") == before + 1
     assert out[0].shape == out[1].shape == (n, n, B)
     assert max_diff(out, plain) <= TOL
 
@@ -132,11 +133,11 @@ def test_matmul_kernel_matches_plain(cuda, n, B):
 @pytest.mark.parametrize("n", DIMS)
 def test_expm_kernel_matches_plain(cuda, n, B, order, squarings):
     planes = unit_planes(np.random.default_rng(n + order), n, B, cuda)
-    before = bl.expm_taylor_bol.launches
+    before = launches("expm_bol_launch")
     out = bl.expm_taylor_bol(*planes, order=order, squarings=squarings)
     plain = bl.expm_taylor_bol_plain(*planes, order, squarings)
     torch.cuda.synchronize()
-    assert bl.expm_taylor_bol.launches == before + 1
+    assert launches("expm_bol_launch") == before + 1
     assert max_diff(out, plain) <= TOL
 
 
@@ -145,11 +146,11 @@ def test_expm_kernel_matches_plain(cuda, n, B, order, squarings):
 @pytest.mark.parametrize("n", DIMS)
 def test_expm_bwd_kernel_matches_plain(cuda, n, B, order, squarings):
     planes = unit_planes(np.random.default_rng(n + order + 50), n, B, cuda, count=4)
-    before = bl.expm_taylor_bol_bwd.launches
+    before = launches("expm_bwd_bol_launch")
     out = bl.expm_taylor_bol_bwd(*planes, order=order, squarings=squarings)
     plain = bl.expm_taylor_bol_bwd_plain(*planes, order, squarings)
     torch.cuda.synchronize()
-    assert bl.expm_taylor_bol_bwd.launches == before + 1
+    assert launches("expm_bwd_bol_launch") == before + 1
     assert max_diff(out, plain) <= TOL
 
 
@@ -167,7 +168,7 @@ def bwd_scale(want):
 @pytest.mark.parametrize("n", LANE_DIMS)
 def test_expm_kernels_ragged_lanes(cuda, n, B):
     planes = unit_planes(np.random.default_rng(1000 + n + B), n, B, cuda, count=4)
-    before = (bl.expm_taylor_bol.launches, bl.expm_taylor_bol_bwd.launches)
+    before = (launches("expm_bol_launch"), launches("expm_bwd_bol_launch"))
     for order, squarings in ((12, 1), (5, 0), (1, 3)):
         out = bl.expm_taylor_bol(*planes[:2], order, squarings)
         assert max_diff(out, bl.expm_taylor_bol_plain(*planes[:2], order, squarings)) <= TOL
@@ -176,7 +177,7 @@ def test_expm_kernels_ragged_lanes(cuda, n, B):
         assert out[0].shape == (n, n, B)
         assert max_diff(out, want) <= TOL * bwd_scale(want)
     torch.cuda.synchronize()
-    assert (bl.expm_taylor_bol.launches, bl.expm_taylor_bol_bwd.launches) == (
+    assert (launches("expm_bol_launch"), launches("expm_bwd_bol_launch")) == (
         before[0] + 3, before[1] + 3)
 
 
@@ -184,10 +185,10 @@ def test_expm_kernels_ragged_lanes(cuda, n, B):
 @pytest.mark.parametrize("n", LANE_DIMS)
 def test_expm_kernel_complex128(cuda, n, B):
     planes = unit_planes(np.random.default_rng(2000 + n + B), n, B, cuda, dtype=torch.float64)
-    before = bl.expm_taylor_bol.launches
+    before = launches("expm_bol_launch")
     out = bl.expm_taylor_bol(*planes, 12, 1)
     torch.cuda.synchronize()
-    assert bl.expm_taylor_bol.launches == before + 1
+    assert launches("expm_bol_launch") == before + 1
     assert out[0].dtype == torch.float64
     assert max_diff(out, bl.expm_taylor_bol_plain(*planes, 12, 1)) <= 1e-12
 
@@ -207,7 +208,7 @@ def test_expm_bwd_kernel_is_the_autograd_vjp(cuda, n):
 def test_expm_bwd_needs_no_work_buffer(cuda):
     """No tape: the backward asks for device memory only where its six
     working matrices pass a block's shared memory (n > 69)."""
-    lib = bl._kernel_lib()
+    lib = bl._LIB
     assert lib.batched_linalg_work_bytes(2, 10, 256000, 12, 1, 0) == 0
     for n in (1, 16, 17, 64, 69):
         assert lib.batched_linalg_work_bytes(2, n, 1000, 12, 1, 0) == 0
@@ -247,11 +248,11 @@ def test_kernels_read_complex_views_in_place(cuda):
 
 def test_expm_ad_launches_both_kernels(cuda):
     planes = [p.requires_grad_(True) for p in unit_planes(np.random.default_rng(3), 4, 9, cuda)]
-    fwd, bwd = bl.expm_taylor_bol.launches, bl.expm_taylor_bol_bwd.launches
+    fwd, bwd = launches("expm_bol_launch"), launches("expm_bwd_bol_launch")
     pr, pi = bl.expm_taylor_bol_ad(*planes, 12, 1)
     (pr.sum() + 2.0 * pi.sum()).backward()
-    assert bl.expm_taylor_bol.launches == fwd + 1
-    assert bl.expm_taylor_bol_bwd.launches == bwd + 1
+    assert launches("expm_bol_launch") == fwd + 1
+    assert launches("expm_bwd_bol_launch") == bwd + 1
     twins = [p.detach().clone().requires_grad_(True) for p in planes]
     tr, ti = bl.expm_taylor_bol_plain(*twins, 12, 1)
     (tr.sum() + 2.0 * ti.sum()).backward()
@@ -275,8 +276,8 @@ def test_batched_linalg_kernels_reject(cuda):
 # above n = 64 (a lane's matrices in device memory above 98) the kernels run
 # --------------------------------------------------------------------------
 def launch_counts():
-    return (ca.chain_apply_bol.launches, bl.matmul_bol.launches, bl.expm_taylor_bol.launches,
-            bl.expm_taylor_bol_bwd.launches)
+    return tuple(launches(entry) for entry in ("chain_apply_launch", "matmul_bol_launch",
+                                               "expm_bol_launch", "expm_bwd_bol_launch"))
 
 
 @pytest.mark.parametrize("n", [65, 80, 100])

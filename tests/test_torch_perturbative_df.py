@@ -24,8 +24,7 @@ from qiskit_dynamics_tpu import Signal as JaxSignal
 
 from qiskit_dynamics_tpu_torch import Signal, interop
 from qiskit_dynamics_tpu_torch.exceptions import DynamicsError
-from qiskit_dynamics_tpu_torch.ops import batched_linalg as bl
-from qiskit_dynamics_tpu_torch.ops import chain_apply as ca
+from qiskit_dynamics_tpu_torch.kernels import launches
 
 X = np.array([[0.0, 1.0], [1.0, 0.0]], dtype=complex)
 Z = np.array([[1.0, 0.0], [0.0, -1.0]], dtype=complex)
@@ -75,10 +74,10 @@ def test_df32_matches_jax(solvers):
     jax_solver, solver = solvers
     want = np.asarray(jax_solver.solve_sweep(T0, N_STEPS, Y0, jax_signals, AMPS,
                                              precision="df32", df_order=8))
-    before = (ca.chain_apply_bol.launches, bl.expm_taylor_bol.launches)
+    before = (launches("chain_apply_launch"), launches("expm_bol_launch"))
     got = solver.solve_sweep(T0, N_STEPS, Y0, port_signals, torch.as_tensor(AMPS),
                              precision="df32", df_chunk_b=2)
-    assert (ca.chain_apply_bol.launches, bl.expm_taylor_bol.launches) == before  # CPU: plain
+    assert (launches("chain_apply_launch"), launches("expm_bol_launch")) == before  # CPU: plain
     assert got.shape == (len(AMPS), 2) and got.dtype == torch.complex128
     assert_rel_close(got, want, 1e-10)
 

@@ -46,12 +46,13 @@ from qiskit_dynamics_tpu.ops.polynomial_sweep import (
 from qiskit_dynamics_tpu.solvers import fused_sweep_solve as jax_fused_sweep_solve
 
 from qiskit_dynamics_tpu_torch import Signal, Solver
+from qiskit_dynamics_tpu_torch.kernels import launches
 from qiskit_dynamics_tpu_torch.ops import horner_pallas as hp
 from qiskit_dynamics_tpu_torch.ops import polynomial_sweep as psw
 from qiskit_dynamics_tpu_torch.ops.xla_sweep import sweep_expm_magnus2_xla
 from qiskit_dynamics_tpu_torch.solvers import fused_sweep_solve
 from qiskit_dynamics_tpu_torch.solvers.fused_sweep import _select_engine
-from qiskit_dynamics_tpu_torch.utils import metrics
+from qiskit_dynamics_tpu_torch.utils import lru, metrics
 
 N, T, B = 6, 6, 5
 DT, T0 = 0.1, 0.3
@@ -69,9 +70,9 @@ def horner_inputs():
 
 def test_horner_plain_matches_jax_pallas(horner_inputs):
     expected = jax_horner(*[jnp.asarray(x) for x in horner_inputs], order=8, interpret=True)
-    before = hp.horner_apply_bm.launches
+    before = launches("horner_apply_launch")
     out = hp.horner_apply_bm(*[torch.as_tensor(x) for x in horner_inputs], order=8)
-    assert hp.horner_apply_bm.launches == before  # CPU tensors: the plain version
+    assert launches("horner_apply_launch") == before  # CPU tensors: the plain version
     for got, want in zip(out, expected):
         assert got.dtype == torch.float64
         assert_rel_close(got, np.asarray(want), 1e-10)
@@ -377,7 +378,7 @@ def test_prepared_cache_misses_on_any_change(cache_inputs, case):
 
 def test_prepared_cache_is_bounded(cache_inputs):
     p = cache_inputs
-    cap = psw._CACHE_ENTRIES
+    cap = lru.ENTRIES
     _cached_solve(p)
     evicted = weakref.ref(next(iter(psw._PREPARED_CACHE.values()))[1])
     outs = [_cached_solve(p, ops=p["ops"] * (1 + 0.1 * i)) for i in range(cap + 2)]

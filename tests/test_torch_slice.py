@@ -31,7 +31,7 @@ from qiskit_dynamics_tpu.solvers import fused_adaptive_sweep_solve as jax_fused_
 
 from qiskit_dynamics_tpu_torch import Signal
 from qiskit_dynamics_tpu_torch.benchmarks import cr_solver
-from qiskit_dynamics_tpu_torch.ops.adaptive_sweep import sweep_dopri5_lockstep
+from qiskit_dynamics_tpu_torch.kernels import launches
 from qiskit_dynamics_tpu_torch.solvers import fused_adaptive_sweep_solve
 
 T_SMALL = 2.0
@@ -87,12 +87,12 @@ def full_width():
     y0 = np.zeros(16, dtype=complex)
     y0[0] = 1.0
     amps = np.array([0.25, 0.625, 1.0])
-    before = sweep_dopri5_lockstep.launches
+    before = launches("adaptive_sweep_launch")
     out = solver.solve_sweep(
         lambda a: [Signal(lambda t: a * AMP_SCALE, carrier_freq=w1)], torch.as_tensor(amps),
         t_span=(0.0, 100.0), y0=y0, atol=1e-6, rtol=1e-6, h0=0.1,
     )
-    assert sweep_dopri5_lockstep.launches == before  # CPU tensors: the twin, no launch
+    assert launches("adaptive_sweep_launch") == before  # CPU tensors: the twin, no launch
     return solver, w1, y0, amps, out
 
 

@@ -12,7 +12,8 @@ Card tests (marked ``cuda``; skipped without a card): a hit is bit-identical
 to the eager path over three amplitude batches, with ``t_eval``, a 2-d
 ``y0``, envelope tables and without bucketing; the hit, miss and fallback
 counters; a carrier or phase change is a new capture; B1's accepted steps per ``sweep.engine`` span on a hit and on the
-eager path; a returned result survives the next call. This file imports
+eager path; B1's launch counter over a miss and its hits; a returned result
+survives the next call. This file imports
 nothing of JAX; on the card run it with ``python -m pytest
 tests/test_torch_sweep_graph.py --noconftest``.
 """
@@ -26,6 +27,7 @@ import torch
 from qiskit_dynamics_tpu_torch import Signal, SignalSum
 from qiskit_dynamics_tpu_torch.benchmarks import cr_solver
 from qiskit_dynamics_tpu_torch.exceptions import DynamicsError
+from qiskit_dynamics_tpu_torch.kernels import launches
 from qiskit_dynamics_tpu_torch.ops import adaptive_sweep as asw
 from qiskit_dynamics_tpu_torch.solvers import fused_sweep as fs
 from qiskit_dynamics_tpu_torch.solvers.fused_sweep import sweep_arguments
@@ -532,6 +534,25 @@ def test_accepted_steps_per_engine_span_on_a_hit(cuda, clean):
     _graph(solver, fn, amps)  # the miss of the counting key
     assert per_span(_graph, 3) == eager
     assert metrics.counters()["sweep.graph_hits"] == 3
+
+
+@pytest.mark.cuda
+def test_a_capture_launches_nothing_and_each_replay_counts_one(cuda, clean):
+    """B1's launches, ``kernel.launches.adaptive_sweep_launch``: a miss runs
+    the chain once (one launch) and captures it (none); each hit replays it
+    (one), as the eager path counts its own."""
+    solver, _, fn = _card(cuda)
+    amps = _batches(cuda, 1000, 1)[0]
+    metrics.enable_metrics()
+    _graph(solver, fn, amps)
+    assert launches("adaptive_sweep_launch") == 1
+    for _ in range(2):
+        _graph(solver, fn, amps)
+    assert launches("adaptive_sweep_launch") == 3
+    _eager(solver, fn, amps)
+    assert launches("adaptive_sweep_launch") == 4
+    counts = metrics.counters()
+    assert counts["sweep.graph_misses"] == 1 and counts["sweep.graph_hits"] == 2
 
 
 @pytest.mark.cuda

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from qiskit_dynamics_tpu_torch.kernels import launches
 from qiskit_dynamics_tpu_torch.ops import sweep_solver as ssw
 from qiskit_dynamics_tpu_torch.ops.xla_sweep import sweep_expm_magnus2_xla
 
@@ -47,11 +48,11 @@ def _problem(n: int, members: int, steps: int, cuda, k: int = 2):
 def test_kernel_matches_plain(cuda, n, mode):
     args = _problem(n, 200, 12, cuda)  # 200 lanes: a ragged last block
     kwargs = dict(dt=0.05, t0=0.2, tile_b=8, hermitian=True, mode=mode)
-    before = ssw.sweep_expm_magnus2.launches
+    before = launches("sweep_magnus2_launch")
     out = ssw.sweep_expm_magnus2(*args, **kwargs)
     plain, _ = ssw.sweep_expm_magnus2_plain(ssw.prepare_inputs(*args, **kwargs))
     torch.cuda.synchronize()
-    assert ssw.sweep_expm_magnus2.launches == before + 1
+    assert launches("sweep_magnus2_launch") == before + 1
     assert float((out - plain).abs().max()) <= 1e-5
 
 
@@ -70,10 +71,10 @@ def test_kernel_edges_match_plain_and_engine(cuda, n, mode, k):
     slots = (-1, 0, -1, -1, 1, -1, -1, -1, -1, -1, -1, 2)
     kwargs = dict(dt=0.05, t0=0.2, tile_b=1, hermitian=True, mode=mode, eval_slots=slots)
     args = (static, ops, omega, coef, y0)
-    before = ssw.sweep_expm_magnus2.launches
+    before = launches("sweep_magnus2_launch")
     out, traj = ssw.sweep_expm_magnus2(*args, **kwargs)
     torch.cuda.synchronize()
-    assert ssw.sweep_expm_magnus2.launches == before + 1
+    assert launches("sweep_magnus2_launch") == before + 1
     plain, plain_traj = ssw.sweep_expm_magnus2_plain(ssw.prepare_inputs(*args, **kwargs))
     assert out.shape == (n, members) and traj.shape == (3, n, members)
     assert float((out - plain).abs().max()) <= B2_TOL
@@ -115,7 +116,7 @@ def test_launch_shape(cuda, n):
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     others = [ssw.launch_shape(n, 2, "matrix_herm", 10_000, warps=w)
               for w in range(1, ssw.MAX_WARPS_PER_BLOCK + 1)
-              if ssw._kernel_lib().sweep_magnus2_smem_bytes(n, 2, 1, w) <= ssw.MAX_SHARED_BYTES]
+              if ssw._LIB.sweep_magnus2_smem_bytes(n, 2, 1, w) <= ssw.MAX_SHARED_BYTES]
     assert ssw.wave_cost(shape, sms) == min(ssw.wave_cost(o, sms) for o in others)
 
 

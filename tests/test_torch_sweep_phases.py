@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from qiskit_dynamics_tpu_torch.ops import sweep_solver as ssw
+from qiskit_dynamics_tpu_torch.ops.magnus_rule import MAGNUS_NODES, TWO_PI
 
 
 @pytest.mark.parametrize("n", [1, 3, 4, 9, 16])
@@ -25,10 +26,10 @@ def test_phase_table_matches_in_loop_phases(n):
     assert table.shape == (steps, 2, nc // 2, n, 4)
     cos_t, sin_t = ssw.phase_matrices(table, n)
     for step in range(steps):
-        for g, gauss_c in enumerate((ssw._GAUSS_C1, ssw._GAUSS_C2)):
+        for g, gauss_c in enumerate(MAGNUS_NODES[2].tolist()):
             # the plain version's former in-loop phases
             tau = t0 + (step + gauss_c) * dt
-            ph = torch.fmod(omega * tau, ssw._TWO_PI)
+            ph = torch.fmod(omega * tau, TWO_PI)
             assert torch.equal(cos_t[step, g], torch.cos(ph))
             assert torch.equal(sin_t[step, g], torch.sin(ph))
     # the kernel's layout: row i of columns (2p, 2p + 1) at [s, g, p, i], zero past n
