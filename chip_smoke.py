@@ -11,7 +11,7 @@ raises and exits non-zero:
 1. device: a CUDA device is required; prints the card's name and power limit
    as ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
    reports them.
-2. build: compiles the nine kernel sources, the lockstep-adaptive dopri5
+2. build: compiles the ten kernel sources, the lockstep-adaptive dopri5
    sweep (``qiskit_dynamics_tpu_torch/csrc/adaptive_sweep.cu``), the fixed-step
    Magnus-2 sweep (``csrc/sweep_magnus2.cu``), the member-major Magnus-2/3
    sweep (``csrc/member_sweep.cu``), the Horner expm action
@@ -19,8 +19,9 @@ raises and exits non-zero:
    (``csrc/chain_apply.cu``), the batched product, Taylor expm and expm
    backward (``csrc/batched_linalg.cu``), the FP64 Magnus sweep
    (``csrc/df_magnus_sweep.cu``, and ``csrc/df_magnus_wide.cu`` above n =
-   32) and the fused expm chain
-   (``csrc/expm_chain.cu``), one nvcc each, in parallel.
+   32), the fused expm chain
+   (``csrc/expm_chain.cu``) and the perturbative step's monomials and
+   contraction (``csrc/monomial_contract.cu``), one nvcc each, in parallel.
 3. kernel against its eager twin on the card, in every mode (constant
    envelopes with padded lanes, envelope tables, eval times, budget
    exhaustion, stall guard) at n = 4, 9, 16, 27, 33, 64 (tile_b = 256): final
@@ -119,8 +120,11 @@ raises and exits non-zero:
    ``dyson_transmon_solver(device="cuda")`` (dim 10, nu = 5, alpha = -0.33,
    r = 0.02, dt = 0.1, Chebyshev order 1, Dyson order 6) through
    ``solve_sweep`` over 2,048 Gaussian amplitudes in [0.2, 1.0] (sigma = T/6,
-   centred at T/2), 1,000 steps, y0 = e_0; the chain kernel's launch counter
-   must rise; members 0, 1,023 and 2,047 within 1e-5 in max | |y| - |ref| |
+   centred at T/2), 1,000 steps, y0 = e_0; the chain kernel's and the
+   monomial_contract kernel's (B11) launch counters must rise once; B11 at
+   the row's shape (2,048,000 lanes, 209 terms) beside its bound and its plain
+   version (the monomial table and addmm it replaced, its library yardstick),
+   within 1e-5 of the largest entry; members 0, 1,023 and 2,047 within 1e-5 in max | |y| - |ref| |
    of the port's host DOP853 (atol = rtol = 1e-12) rotated into the frame
    (the forward's rate is the benchmark cell ``dyson_sweep``'s, not timed
    here); then the gradient of ``sum(|y[:, 1]|^2) / B``
@@ -129,7 +133,8 @@ raises and exits non-zero:
    gradient (computed on the host).
 13. the Magnus row at full width: ``magnus_transmon_solver(device="cuda")``
    (Magnus order 3, one squaring; the forward's rate: the cell
-   ``magnus_sweep``), the same sweep and bars: the expm kernel
+   ``magnus_sweep``), the same sweep and bars (B11 at 34 terms, float32
+   planes out): the expm kernel
    must launch once per call over 2,048,000 lanes and the chain kernel after
    it; in the gradient the expm backward kernel must launch 8 times over
    256,000 lanes. ``torch.linalg.matrix_exp`` is timed beside the expm
@@ -268,6 +273,9 @@ PT_SWEEP = 2_048
 PT_CHUNKS = 8
 PT_TOL = 1e-5  # dyson_max_err and magnus_max_err against DOP853(1e-12)
 PT_KERNEL_TOL = 1e-5  # batched_linalg kernels vs torch.einsum: float32 roundoff
+# monomial_contract vs its plain version (the table and a cuBLAS addmm), of the
+# largest entry: float32 sums of up to 209 terms in two orders
+B11_TOL = 1e-5
 PT_DIMS = (2, 4, 10, 16, 32, 48)
 PT_BATCHES = (37, 1000)
 PT_EXPM_CASES = ((8, 0), (8, 2), (12, 0), (12, 1), (12, 2))
@@ -1547,29 +1555,34 @@ def phase_perturbative_row(torch, phase, name, make_solver, Signal, ca, bl, refs
     accuracy, the gradient, and its kernels alone at the shapes the row gave
     them. The forward's rate is the benchmark's (cells ``dyson_sweep`` and
     ``magnus_sweep``), not timed here."""
+    from qiskit_dynamics_tpu_torch.ops import monomial_contract as mc
+
     solver, nu = make_solver(device="cuda")
     magnus = solver.model.expansion_method == "magnus"
     terms = len(solver.model.expansion_polynomial.monomial_labels)
     amps = torch.linspace(0.2, 1.0, PT_SWEEP, dtype=torch.float64, device="cuda")
     y0, signals_fn, sweep, value_and_grad = perturbative_sweep(torch, Signal, solver, nu, amps)
 
-    entries = ("chain_apply_launch", "expm_bol_launch", "expm_bwd_bol_launch")
+    entries = ("chain_apply_launch", "expm_bol_launch", "expm_bwd_bol_launch",
+               "monomial_contract_launch")
 
     def counted(fn):
         before = [launched(e) for e in entries]
-        with Capture(ca) as cap_chain, Capture(bl) as cap_linalg:
+        with Capture(ca) as cap_chain, Capture(bl) as cap_linalg, Capture(mc) as cap_b11:
             out = fn()
             torch.cuda.synchronize()
         counts = [launched(e) - b for e, b in zip(entries, before)]
-        return out, counts, cap_chain.last, cap_linalg.last
+        return out, counts, cap_chain.last, cap_linalg.last, cap_b11.last
 
     sweep()  # warm-up
     torch.cuda.synchronize()
-    out, fwd_counts, chain_args, expm_args = counted(sweep)
+    out, fwd_counts, chain_args, expm_args, b11_args = counted(sweep)
     check(fwd_counts[0] == 1, f"the {name} sweep launched the chain_apply kernel "
           f"{fwd_counts[0]} times, not once")
     check(fwd_counts[1] == (1 if magnus else 0), f"the {name} sweep launched the expm kernel "
           f"{fwd_counts[1]} times")
+    check(fwd_counts[3] == 1, f"the {name} sweep launched the monomial_contract kernel "
+          f"{fwd_counts[3]} times, not once")
     check(out.shape == (PT_SWEEP, PT_DIM), f"{name} output shape {tuple(out.shape)}")
     check(bool(torch.isfinite(torch.view_as_real(out)).all()), f"non-finite {name} states")
     norm_dev = float(((out.abs() ** 2).sum(dim=1) - 1.0).abs().max())
@@ -1592,6 +1605,33 @@ def phase_perturbative_row(torch, phase, name, make_solver, Signal, ca, bl, refs
         launches=fwd_counts[0], max_abs_err=chain_diff, ms=chain_ms, plain_ms=chain_plain_ms,
         bound_ms=chain_bound[0], bound_by=chain_bound[1]))
     del props, y0_cols, chain_args, chain_out, chain_plain
+
+    # B11 at the row's shape; its plain version is the table and addmm it
+    # replaced, so the plain time is the library yardstick too
+    coeffs, expansion, interleaved = b11_args
+    b11_ms = cuda_ms(torch, lambda: mc._launch_kernel(coeffs, expansion, interleaved), reps=5)
+    b11_out = mc._launch_kernel(coeffs, expansion, interleaved)
+    b11_plain_ms = cuda_ms(
+        torch, lambda: mc.contract_monomials_plain(coeffs, expansion, interleaved), reps=3)
+    b11_plain = mc.contract_monomials_plain(coeffs, expansion, interleaved)
+    b11_diff = float((b11_out - b11_plain).abs().max() / b11_plain.abs().max())
+    check(b11_diff <= B11_TOL, f"{name}: monomial_contract kernel vs plain {b11_diff:.2e} of the "
+          f"largest entry > {B11_TOL}")
+    b11_lanes = coeffs.shape[1]
+    b11_bound = bound(((terms - coeffs.shape[0]) + 4.0 * terms * n * n) * b11_lanes,
+                      4.0 * coeffs.shape[0] * b11_lanes + 8.0 * terms * n * n
+                      + 8.0 * n * n * b11_lanes)
+    b11_shape = mc.launch_shape(n)
+    result["b11"] = dict(
+        launches=fwd_counts[3], max_abs_err=b11_diff, ms=b11_ms, plain_ms=b11_plain_ms,
+        bound_ms=b11_bound[0], bound_by=b11_bound[1], library_ms=b11_plain_ms,
+        shape=dataclasses.asdict(b11_shape))
+    b11_text = (
+        f"monomial_contract kernel {b11_ms:.3f} ms over {b11_lanes} lanes (bound "
+        f"{b11_bound[0]:.3f} ms, {b11_bound[1]}; TE {b11_shape.te}, {b11_shape.warps} warps, "
+        f"{b11_shape.tiles} tile(s)), plain version (the table and addmm it replaced) "
+        f"{b11_plain_ms:.3f} ms, kernel vs plain {b11_diff:.2e} of the largest entry; ")
+    del coeffs, expansion, b11_args, b11_out, b11_plain
     expm_text = ""
     if magnus:
         which, planes, order, squarings = expm_args
@@ -1665,11 +1705,13 @@ def phase_perturbative_row(torch, phase, name, make_solver, Signal, ca, bl, refs
     # the gradient over 8 checkpointed chunks
     value_and_grad()  # warm-up
     torch.cuda.synchronize()
-    grad, grad_counts, _, bwd_args = counted(value_and_grad)
+    grad, grad_counts, _, bwd_args, _ = counted(value_and_grad)
     check(grad.shape == (PT_SWEEP,) and bool(torch.isfinite(grad).all()),
           f"{name} gradient shape or values")
     check(grad_counts[0] == 2 * PT_CHUNKS, f"the {name} gradient launched the chain_apply kernel "
           f"{grad_counts[0]} times, not {2 * PT_CHUNKS} (forward and recompute per chunk)")
+    check(grad_counts[3] == 2 * PT_CHUNKS, f"the {name} gradient launched the monomial_contract "
+          f"kernel {grad_counts[3]} times, not {2 * PT_CHUNKS} (forward and recompute per chunk)")
     if magnus:
         check(grad_counts[2] == PT_CHUNKS, f"the Magnus gradient launched the expm backward "
               f"kernel {grad_counts[2]} times, not {PT_CHUNKS}")
@@ -1722,19 +1764,20 @@ def phase_perturbative_row(torch, phase, name, make_solver, Signal, ca, bl, refs
             f"launch: {bwd_shape_text}; ")
         del planes, bwd_args, bwd_out
     result["chain"]["launches"] += grad_counts[0]
+    result["b11"]["launches"] += grad_counts[3]
     torch.cuda.empty_cache()
     result.update(grad_sims_per_s=PT_SWEEP / grad_call, max_err=err, grad_err=grad_err)
     print(
         f"phase {phase} {name} row: dim {PT_DIM}, {PT_SWEEP} members, {PT_STEPS} steps of "
         f"{PT_DT}, {terms} monomials (the forward's rate: the benchmark's {name}_sweep); chain "
         f"kernel {chain_ms:.3f} ms (bound {chain_bound[0]:.3f} ms, {chain_bound[1]}), plain "
-        f"{chain_plain_ms:.1f} ms, bitwise equal; {expm_text}{name}_max_err {err:.2e} "
+        f"{chain_plain_ms:.1f} ms, bitwise equal; {b11_text}{expm_text}{name}_max_err {err:.2e} "
         f"(<= {PT_TOL}, {len(probes)} probes vs DOP853 1e-12 at {ref_s:.2f} s/sim; vs the "
         f"complex128 plain route {state_err:.2e}); max |norm - 1| {norm_dev:.2e}; gradient over "
         f"{PT_CHUNKS} checkpointed chunks: {PT_SWEEP / grad_call:.1f} grad-sims/s ({grad_reps} "
         f"calls in {grad_block:.2f} s, {grad_call * 1e3:.1f} ms/call), {bwd_text}gradient vs "
         f"complex128 plain route {grad_err:.2e} of max |g| (<= {GRAD_TOL}); launches forward "
-        f"[chain, expm, expm_bwd] {fwd_counts}, gradient {grad_counts}",
+        f"[chain, expm, expm_bwd, monomial_contract] {fwd_counts}, gradient {grad_counts}",
         flush=True,
     )
     return result
@@ -2342,10 +2385,11 @@ def main() -> int:
         sweep_arguments,
     )
 
-    # phase 2: build the nine kernel sources, one nvcc each, in parallel
+    # phase 2: build the ten kernel sources, one nvcc each, in parallel
     start = time.perf_counter()
     names = ("adaptive_sweep", "sweep_magnus2", "member_sweep", "horner_apply", "chain_apply",
-             "batched_linalg", "df_magnus_sweep", "df_magnus_wide", "expm_chain")
+             "batched_linalg", "df_magnus_sweep", "df_magnus_wide", "expm_chain",
+             "monomial_contract")
     with ThreadPoolExecutor(len(names)) as pool:
         libs = list(pool.map(_build.load, names))
     check(all(lib is not None for lib in libs), "a kernel library did not load")
@@ -2639,6 +2683,13 @@ def main() -> int:
         "complex128": {**dyson_df["chain"], "dyson_df_sims_per_s": dyson_df["sims_per_s"],
                        "dyson_df_max_err": dyson_df["max_err"],
                        "magnus_df_row": magnus_df["chain"]},
+    }, {
+        "name": "monomial_contract",
+        "route": "cuda",
+        "source": "qiskit_dynamics_tpu_torch/csrc/monomial_contract.cu",
+        "replaces": None,
+        **dyson["b11"],
+        "magnus_row": magnus["b11"],
     }, {
         "name": "expm_taylor_bol",
         "route": "cuda",

@@ -4,6 +4,7 @@ Magnus-2/3 sweep (B3), the Horner expm action (B4), the streamed propagator
 chain (B5), the batch-minor Taylor expm, its backward and the batched product
 (B6, B7, B10), the native-FP64 Magnus sweep (B8), the fused expm chain (B9)
 and the fixed-order Taylor expm it shares with the fixed-step solvers, the
+perturbative step's monomials and their contraction (B11), the
 eager and polynomial engines and the differentiable wrappers of the
 fixed-step sweeps."""
 from .adaptive_sweep import sweep_dopri5_lockstep, sweep_dopri5_lockstep_plain
@@ -17,6 +18,7 @@ from .df_sweep import sweep_expm_magnus_df, sweep_expm_magnus_df_plain
 from .chain_apply import chain_apply_bol, chain_apply_bol_ad, chain_apply_bol_plain
 from .expm import expm_taylor
 from .expm_chain_pallas import expm_chain_fused, expm_chain_fused_plain
+from .monomial_contract import contract_monomials, contract_monomials_plain
 from .batched_linalg import (
     matmul_bol,
     expm_taylor_bol,
@@ -55,4 +57,6 @@ __all__ = [
     "expm_taylor",
     "expm_chain_fused",
     "expm_chain_fused_plain",
+    "contract_monomials",
+    "contract_monomials_plain",
 ]

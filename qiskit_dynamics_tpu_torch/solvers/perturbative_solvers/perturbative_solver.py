@@ -36,6 +36,7 @@ from ...exceptions import DynamicsError
 from ...ops.batched_linalg import expm_taylor_bol_ad
 from ...ops.expm import expm_pade
 from ...ops.chain_apply import chain_apply_bol_ad
+from ...ops.monomial_contract import Expansion, contract_monomials
 from ...parallel.scan import propagator_scan
 from ...signals import SignalList
 from ...unified import is_tensor, to_numpy, to_tensor
@@ -328,7 +329,8 @@ class _PerturbativeSolver(ABC):
                 coeffs = torch.func.vmap(
                     lambda p: model.approximate_signals(signals_fn(p), t0, n_steps)
                 )(params)                                    # (B, n_vars, T), float64
-                coeffs = torch.movedim(coeffs, 0, -1).to(_real_dtype(cdtype))  # (n_vars, T, B)
+                coeffs = torch.movedim(coeffs, 0, -1).to(  # (n_vars, T, B)
+                    _real_dtype(cdtype), memory_format=torch.contiguous_format)
             B = coeffs.shape[2]
 
             with span("sweep.prepare"):
@@ -349,15 +351,21 @@ class _PerturbativeSolver(ABC):
                     return torch.cat([(Uf @ final).T for final in finals])
 
     def _sweep_expansion(self, cdtype):
-        """The expansion on the model's device for :meth:`_sweep_chain`: the
-        complex coefficients as ONE real (2 n^2, M) matrix, rows the real
+        """The expansion on the model's device for :meth:`_sweep_chain`, made
+        at the first call in ``cdtype`` and kept: an
+        :class:`~qiskit_dynamics_tpu_torch.ops.monomial_contract.Expansion`
+        (the complex coefficients as ONE real (2 n^2, M) matrix, rows the real
         plane then the imaginary plane; the constant term as the product's
-        (2 n^2, 1) starting value (None without one); Magnus's ``Udt`` in
+        (2 n^2, 1) starting value, None without one) and Magnus's ``Udt`` in
         ``cdtype`` (None for Dyson)."""
+        kept = self.__dict__.setdefault("_sweep_expansions", {})
+        if cdtype in kept:
+            return kept[cdtype]
         model = self.model
         device = model.device
         dim = model.Udt.shape[0]
-        array_coeffs, constant = model.expansion_polynomial.tensors(device, cdtype)
+        polynomial = model.expansion_polynomial
+        array_coeffs, constant = polynomial.tensors(device, cdtype)
         n_terms = array_coeffs.shape[0]
         planes = torch.view_as_real(array_coeffs.reshape(n_terms, dim * dim))
         planes = planes.permute(2, 1, 0).reshape(2 * dim * dim, n_terms)
@@ -367,32 +375,27 @@ class _PerturbativeSolver(ABC):
         Udt = None
         if model.expansion_method == "magnus":
             Udt = torch.as_tensor(model.Udt, device=device).to(cdtype)
-        return planes, start, Udt
+        kept[cdtype] = (Expansion(polynomial, planes, start, dim), Udt)
+        return kept[cdtype]
 
     def _sweep_chain(self, coeffs, y0_frame, expansion, expm_squarings: int):
         """The frame-basis final states (dim, B) of the members of ``coeffs``
-        (n_vars, T, B): the monomial table, one real product against the
-        ``expansion`` of :meth:`_sweep_expansion`, the per-step ``expm`` for
-        Magnus, the streamed chain."""
+        (n_vars, T, B): the ``expansion`` of :meth:`_sweep_expansion` at every
+        step (the monomials and their contraction,
+        :func:`~qiskit_dynamics_tpu_torch.ops.monomial_contract.contract_monomials`),
+        the per-step ``expm`` for Magnus, the streamed chain."""
         model = self.model
-        planes, start, Udt = expansion
+        contraction, Udt = expansion
         dim = model.Udt.shape[0]
-        n_terms = planes.shape[1]
+        n_terms = contraction.planes.shape[1]
         T_steps, B = coeffs.shape[1], coeffs.shape[2]
         method = model.expansion_method
         count("pert.step_lanes", T_steps * B)
         count("pert.monomials", n_terms)
         with span("sweep.engine", method=method, n=dim, monomials=n_terms,
                   lanes=T_steps * B):
-            monomials = model.expansion_polynomial.compute_monomials(coeffs)  # (M, T, B)
-            monomials = monomials.reshape(n_terms, T_steps * B)
-            if start is None:
-                lanes = planes @ monomials
-            else:
-                lanes = torch.addmm(start, planes, monomials)
-            del monomials
-            lanes = lanes.reshape(2, dim, dim, T_steps * B)
-
+            lanes = contract_monomials(coeffs.reshape(coeffs.shape[0], T_steps * B), contraction,
+                                       interleaved=method == "dyson")
             if method == "magnus":
                 # per-step propagator = Udt @ expm(polynomial), exponentiated over
                 # the flattened (T * B) lanes, kernel forward and kernel backward
@@ -404,7 +407,7 @@ class _PerturbativeSolver(ABC):
                     dim, dim, T_steps, B
                 )
             else:
-                props = torch.complex(lanes[0], lanes[1]).reshape(dim, dim, T_steps, B)
+                props = lanes.reshape(dim, dim, T_steps, B)
             props = torch.movedim(props, 2, 0)               # (T, n, n, B), a view
             return chain_apply_bol_ad(props, y0_frame[:, None].expand(dim, B))
 

@@ -29,6 +29,7 @@ from qiskit_dynamics_tpu_torch.ops import (
     expm_chain_pallas,
     horner_pallas,
     member_sweep,
+    monomial_contract,
     sweep_solver,
 )
 from qiskit_dynamics_tpu_torch.utils import metrics
@@ -167,7 +168,7 @@ def test_a_variant_loads_its_own_build(stub, monkeypatch):
 # ---------------------------------------------------------------------------
 CSRC = Path(boundary._build.SOURCE_DIR)
 WRAPPERS = (adaptive_sweep, batched_linalg, chain_apply, df_sweep, expm_chain_pallas,
-            horner_pallas, member_sweep, sweep_solver)
+            horner_pallas, member_sweep, monomial_contract, sweep_solver)
 LIBRARIES = [lib for module in WRAPPERS for lib in vars(module).values()
              if isinstance(lib, Library)]
 RESULTS = {"": "int", "i": "int", "q": "long long", "z": "size_t"}

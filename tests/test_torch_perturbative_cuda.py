@@ -1,7 +1,8 @@
 """The CUDA kernels of the perturbative sweep against their plain versions, on the card.
 
-The streamed propagator chain (``csrc/chain_apply.cu``) and the batched
-product, Taylor expm and expm backward (``csrc/batched_linalg.cu``). These
+The streamed propagator chain (``csrc/chain_apply.cu``), the batched
+product, Taylor expm and expm backward (``csrc/batched_linalg.cu``) and the
+monomials and their contraction (``csrc/monomial_contract.cu``, B11). These
 tests need an NVIDIA GPU with nvcc; without one they skip. On the card run
 them with ``python -m pytest tests/test_torch_perturbative_cuda.py -m cuda
 --noconftest``.
@@ -10,8 +11,13 @@ The chain kernel is built without multiply-add contraction and its plain
 version repeats its rounded operations in order: they agree bit for bit. The
 batched_linalg kernels fuse multiply-adds and sum in their own order, so they
 agree with the plain versions (``torch.einsum``) to float32 roundoff: within
-1e-5 on unit-norm inputs. This file imports nothing of JAX.
+1e-5 on unit-norm inputs. B11 forms the plain version's monomials bit for
+bit and sums them in FP32 multiply-adds in term order where the plain
+version's cuBLAS product takes its own order: within ``B11_TOL`` of the
+largest output entry. This file imports nothing of JAX.
 """
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -19,10 +25,15 @@ import torch
 from qiskit_dynamics_tpu_torch.kernels import launches
 from qiskit_dynamics_tpu_torch.ops import batched_linalg as bl
 from qiskit_dynamics_tpu_torch.ops import chain_apply as ca
+from qiskit_dynamics_tpu_torch.ops import monomial_contract as mc
+from qiskit_dynamics_tpu_torch.utils import metrics
 
 pytestmark = pytest.mark.cuda
 
 TOL = 1e-5
+# B11 against its plain version, relative to the largest output entry: two
+# float32 sums of up to 209 terms of the cells' size in different orders
+B11_TOL = 1e-5
 DIMS = (2, 4, 10, 16, 32)
 BATCHES = (37, 1000)
 
@@ -314,10 +325,10 @@ def test_ops_past_64_run_the_kernels(cuda, n):
     assert tuple(a - b for a, b in zip(launch_counts(), before)) == (2, 1, 2, 1)
 
 
-def synthetic_solver(method, n, device, seed=5):
+def synthetic_solver(method, n, device, seed=5, labels=None):
     """A Dyson or Magnus solver of dimension ``n`` around seeded arrays in
     place of a precomputed expansion (one drive, Chebyshev order 1 with the
-    imaginary part: four coefficients), complex64."""
+    imaginary part: four coefficients; by default six terms), complex64."""
     from qiskit_dynamics_tpu_torch import interop
 
     gen = np.random.default_rng(seed)
@@ -327,7 +338,7 @@ def synthetic_solver(method, n, device, seed=5):
         return -1j * scale * (a + a.conj().T) / (2 * np.sqrt(n))
 
     udt, _ = np.linalg.qr(gen.normal(size=(n, n)) + 1j * gen.normal(size=(n, n)))
-    labels = [[0], [1], [2], [3], [0, 0], [0, 2]]
+    labels = labels or [[0], [1], [2], [3], [0, 0], [0, 2]]
     return interop.perturbative_solver_from_arrays(
         operators=anti_hermitian(1.0)[None], frame_operator=None, dt=0.1,
         carrier_freqs=np.array([5.0]), chebyshev_orders=[1], include_imag=[True], Udt=udt,
@@ -358,3 +369,161 @@ def test_perturbative_sweep_past_64(cuda, method):
     want = synthetic_solver(method, 65, "cpu").solve_sweep(0.0, 4, y0, signals, amps)
     assert got.device.type == "cuda" and got.shape == want.shape
     assert float((got.cpu() - want).abs().max()) <= TOL
+
+
+# --------------------------------------------------------------------------
+# B11: the monomials and their contraction
+# --------------------------------------------------------------------------
+def complete_labels(order, n_vars=4):
+    """Every multiset of 1 to ``order`` of the variables: 209 terms at order
+    6 (the Dyson cell's), 34 at order 3 (the Magnus cell's)."""
+    return [list(ms) for d in range(1, order + 1)
+            for ms in itertools.combinations_with_replacement(range(n_vars), d)]
+
+
+# node prefixes missing from the labels (positions not the identity) and
+# variables 1 and 3 never named
+INCOMPLETE = [[0], [2], [0, 2], [2, 2, 2], [0, 0, 2], [0, 2, 2, 2]]
+
+
+def b11_expansion(method, n, labels, device):
+    """The expansion the sweep of a seeded solver contracts, in complex64."""
+    solver = synthetic_solver(method, n, device, labels=labels)
+    return solver._sweep_expansion(torch.complex64)[0]
+
+
+def b11_table(L, device, seed=6):
+    """Chebyshev-coefficient-like variables, (4, L) float32."""
+    gen = np.random.default_rng(seed)
+    return torch.as_tensor(gen.uniform(-0.8, 0.8, size=(4, L)), dtype=torch.float32,
+                           device=device)
+
+
+def b11_against_plain(method, n, labels, L, interleaved):
+    expansion = b11_expansion(method, n, labels, "cuda")
+    coeffs = b11_table(L, "cuda")
+    before = launches("monomial_contract_launch")
+    got = mc.contract_monomials(coeffs, expansion, interleaved)
+    want = mc.contract_monomials_plain(coeffs, expansion, interleaved)
+    torch.cuda.synchronize()
+    assert launches("monomial_contract_launch") == before + 1
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert got.dtype == (torch.complex64 if interleaved else torch.float32)
+    scale = max(1.0, float(want.abs().max()))
+    assert float((got - want).abs().max()) <= B11_TOL * scale
+    return got, want
+
+
+@pytest.mark.parametrize("interleaved", [True, False], ids=["complex", "planes"])
+@pytest.mark.parametrize("method, order", [("dyson", 6), ("magnus", 3)])
+def test_b11_matches_plain_at_the_cells_shapes(cuda, method, order, interleaved):
+    """n = 10 with the cells' 209 terms and constant term (Dyson) and 34
+    terms without one (Magnus), in both layouts."""
+    b11_against_plain(method, 10, complete_labels(order), 12_800, interleaved)
+
+
+@pytest.mark.parametrize("L", [1, 7, 130, 1_001, 4_100])
+def test_b11_ragged_lanes(cuda, L):
+    """Lane counts that are not a multiple of the 128-lane tile, nor of 4
+    (the kernel's scalar loads and stores)."""
+    for interleaved in (True, False):
+        b11_against_plain("dyson", 4, complete_labels(4), L, interleaved)
+
+
+@pytest.mark.parametrize("method", ["dyson", "magnus"])
+def test_b11_incomplete_expansion(cuda, method):
+    """Labels whose prefixes are not terms and that skip variables: the
+    monomials are formed from each label alone."""
+    for interleaved in (True, False):
+        b11_against_plain(method, 3, INCOMPLETE, 999, interleaved)
+
+
+@pytest.mark.parametrize("fold", [False, True], ids=["table", "fold"])
+@pytest.mark.parametrize("te", [2, 4, 8, 10])
+def test_b11_every_entries_per_thread_and_mode(cuda, te, fold):
+    """Each instantiation at n = 10 (TE = 2 over two tiles of entries), the
+    monomials from the node table or folded per chunk, against the plain
+    version over ragged lanes."""
+    expansion = b11_expansion("dyson", 10, complete_labels(6), "cuda")
+    coeffs = b11_table(1_001, "cuda")
+    for interleaved in (True, False):
+        got = mc._launch_kernel(coeffs, expansion, interleaved, te=te, fold=fold)
+        want = mc.contract_monomials_plain(coeffs, expansion, interleaved)
+        assert float((got - want).abs().max()) <= B11_TOL * max(1.0, float(want.abs().max()))
+
+
+def test_b11_fold_mode_where_the_table_does_not_fit(cuda):
+    """1,286 terms of five variables: a lane tile's nodes pass shared memory,
+    the kernel folds each term's variables per chunk."""
+    labels = complete_labels(8, n_vars=5)
+    expansion = b11_expansion("magnus", 3, labels, "cuda")
+    assert mc.plan(expansion, mc.launch_shape(3), 5)[0] == 0
+    coeffs = torch.cat([b11_table(500, "cuda"), b11_table(500, "cuda", seed=7)[:1]]) * 0.5
+    for interleaved in (True, False):
+        got = mc.contract_monomials(coeffs, expansion, interleaved)
+        want = mc.contract_monomials_plain(coeffs, expansion, interleaved)
+        assert float((got - want).abs().max()) <= B11_TOL * max(1.0, float(want.abs().max()))
+
+
+def test_b11_past_64_with_planes_larger_than_shared_memory(cuda):
+    """n = 65: the 34-term planes are 1.2 MB, many tiles of entries."""
+    shape = mc.launch_shape(65)
+    assert shape.tiles > 1 and 2 * 65 * 65 * 34 * 4 > 232448
+    for interleaved in (True, False):
+        b11_against_plain("magnus", 65, complete_labels(3), 300, interleaved)
+
+
+def _sweep_passes(method, device, precision, amps, df_chunk_b=2048):
+    """The sweep of a seeded 6-level solver (Dyson 4: 69 terms) under
+    recorded metrics: its output, ``sweep.engine`` passes and B11 launches."""
+    from qiskit_dynamics_tpu_torch import Signal
+
+    def signals(amp):
+        return [Signal(lambda t: amp * torch.cos(t), carrier_freq=5.0)]
+
+    y0 = np.eye(6, dtype=complex)[0]
+    solver = synthetic_solver(method, 6, device, labels=complete_labels(4))
+    metrics.enable_metrics()
+    try:
+        metrics.reset_spans()
+        out = solver.solve_sweep(0.0, 12, y0, signals, amps, precision=precision,
+                                 df_chunk_b=df_chunk_b)
+        if out.is_cuda:
+            torch.cuda.synchronize()
+        passes = [r for r in metrics.span_records() if r.name == "sweep.engine"]
+        return out, len(passes), launches("monomial_contract_launch")
+    finally:
+        metrics.disable_metrics(clear=True)
+
+
+@pytest.mark.parametrize("method", ["dyson", "magnus"])
+def test_b11_one_launch_a_pass_at_f32_none_at_df32(cuda, method):
+    amps = torch.linspace(0.2, 1.0, 5, dtype=torch.float64, device=cuda)
+    _, passes, launched = _sweep_passes(method, cuda, "f32", amps)
+    assert passes == 1 and launched == 1
+    _, passes, launched = _sweep_passes(method, cuda, "df32", amps, df_chunk_b=3)
+    assert passes == 2 and launched == 0
+
+
+@pytest.mark.parametrize("method", ["dyson", "magnus"])
+def test_b11_sweep_gradient_equals_the_plain_route(cuda, method):
+    """The gradient of ``solve_sweep`` in its parameters through the kernel
+    route (the card) equals the plain route's (the CPU, complex64) within
+    float32 roundoff; the forward states too."""
+    from qiskit_dynamics_tpu_torch import Signal
+
+    def signals(amp):
+        return [Signal(lambda t: amp * torch.cos(t), carrier_freq=5.0)]
+
+    y0 = np.eye(6, dtype=complex)[0]
+    results = []
+    for device in (cuda, "cpu"):
+        solver = synthetic_solver(method, 6, device, labels=complete_labels(4))
+        amps = torch.linspace(0.2, 1.0, 9, dtype=torch.float64, device=device)
+        amps.requires_grad_(True)
+        out = solver.solve_sweep(0.0, 12, y0, signals, amps)
+        (grad,) = torch.autograd.grad((out[:, 1].abs() ** 2).sum(), amps)
+        results.append((out.detach().cpu(), grad.cpu()))
+    (out, grad), (want_out, want_grad) = results
+    assert float((out - want_out).abs().max()) <= TOL
+    assert float((grad - want_grad).abs().max()) <= 1e-4 * float(want_grad.abs().max())
