@@ -218,7 +218,7 @@ from pathlib import Path
 
 import numpy as np
 
-from portbench.counts import adaptive_dopri5, roofline
+from portbench.counts import adaptive_dopri5, magnus_member, roofline
 from portbench.counts.roofline import PEAK_F32, PEAK_F64, PEAK_TF32
 
 SWEEP = 10_000
@@ -955,25 +955,19 @@ def phase_large_dim_kernels(torch, msw, hp):
 # phase 9: the Lindblad dim-8 sweep through the member-sweep kernel
 # --------------------------------------------------------------------------
 def b3_bounds(inputs):
-    """Both bounds of one member-sweep launch. Work per member and step: the
-    brackets' complex products (8 n^3 operations each; one at Magnus-2 with
-    ``hermitian``, two per bracket otherwise, as the kernel forms them), the Horner mat-vecs,
-    the generator combination and the Magnus assembly; the rotated tables
-    once per step. ``f32_ms`` counts everything at the FP32 rate outside the
-    tensor cores; ``tf32x3_ms``, the bound the kernel's design is held to,
-    counts the products as three TF32 passes on the tensor cores (3xTF32,
-    495 TFLOP/s dense) and the rest at the FP32 rate. ``products_*_ms`` are
-    the products' share of each."""
-    n, k, T, B, magnus = inputs.n, inputs.k, inputs.steps, inputs.batch, inputs.magnus
-    products = 1 if magnus == 2 and inputs.hermitian else 2 if magnus == 2 else 6
-    assembly = (8 if magnus == 2 else 40) * n * n
-    product_flops = products * 8 * n**3 * T * B
-    other_flops = ((inputs.order * 8 * n * n + magnus * 4 * k * n * n + assembly) * T * B
-                   + T * magnus * (k + 1) * 6 * n * n)
-    nbytes = 4 * T * magnus * k * B + 16 * n * B + 8 * (k + 1) * n * n + 8 * n * n
+    """Both bounds of one member-sweep launch, from
+    :mod:`portbench.counts.magnus_member` (which says what it counts):
+    ``f32_ms`` counts everything at the FP32 rate outside the tensor cores;
+    ``tf32x3_ms``, the bound the kernel's design is held to, counts the
+    products as three TF32 passes on the tensor cores (3xTF32, 495 TFLOP/s
+    dense) and the rest at the FP32 rate. ``products_*_ms`` are the
+    products' share of each."""
+    shape = dict(n=inputs.n, k=inputs.k, order=inputs.order, steps=inputs.steps,
+                 members=inputs.batch, magnus_order=inputs.magnus, hermitian=inputs.hermitian)
+    product_flops, other_flops, nbytes = magnus_member.counts(shape)
     f32_ms, f32_by = bound(product_flops + other_flops, nbytes)
-    tf32_ms, tf32_by = bound(3 * product_flops / PEAK_TF32 * PEAK_F32 + other_flops, nbytes)
-    return dict(f32_ms=f32_ms, f32_by=f32_by, tf32x3_ms=tf32_ms, tf32x3_by=tf32_by,
+    tf32_s, tf32_by = magnus_member.tf32x3(shape)
+    return dict(f32_ms=f32_ms, f32_by=f32_by, tf32x3_ms=tf32_s * 1e3, tf32x3_by=tf32_by,
                 products_f32_ms=product_flops / PEAK_F32 * 1e3,
                 products_tf32x3_ms=3 * product_flops / PEAK_TF32 * 1e3)
 

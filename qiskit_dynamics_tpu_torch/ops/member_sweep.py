@@ -47,7 +47,7 @@ import torch
 
 from ..kernels import MAX_SHARED_BYTES, Library
 from ..unified import default_device, to_tensor
-from ..utils.metrics import span
+from ..utils.metrics import count, span
 from .magnus_rule import MAGNUS_NODES, TWO_PI, step_constants
 
 __all__ = ["sweep_expm_magnus2_member", "sweep_expm_magnus2_member_plain", "prepare_inputs"]
@@ -144,7 +144,11 @@ def sweep_expm_magnus2_member(
     Runs the CUDA kernel when ``y0`` is a CUDA tensor (float32, ``n <= 128``,
     ``n <= 64`` for ``magnus=3``; it raises for anything it cannot launch) and
     the plain version when ``y0`` lies on the CPU. The other arguments are
-    moved to the device of ``y0``.
+    moved to the device of ``y0``. While the port's metrics record
+    (:mod:`~qiskit_dynamics_tpu_torch.utils.metrics`), the pass's
+    ``sweep.engine`` span carries ``n``, ``k``, ``magnus``, ``hermitian``,
+    ``steps`` and ``members``, and the counter ``member.step_lanes`` adds its
+    steps x members, on either route.
 
     Args:
         static_op, operators, frame_omega, y0, dt, t0, order, hermitian: as
@@ -164,7 +168,9 @@ def sweep_expm_magnus2_member(
             static_op, operators, frame_omega, coefficients, y0, dt, t0=t0, order=order,
             hermitian=hermitian, magnus=magnus,
         )
-    with span("sweep.engine"):
+    with span("sweep.engine", n=inputs.n, k=inputs.k, magnus=inputs.magnus,
+              hermitian=inputs.hermitian, steps=inputs.steps, members=inputs.batch):
+        count("member.step_lanes", inputs.steps * inputs.batch)
         if inputs.y0.is_cuda:
             return _launch_kernel(inputs)
         if inputs.y0.device.type == "cpu":

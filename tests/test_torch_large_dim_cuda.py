@@ -13,8 +13,10 @@ held to upload nothing of its expansion (a profiled call). The member-sweep
 dims 33, 37 and 63 are ragged for its 16-row MMA tiles. Where the brackets
 dominate the step (generators of norm ~20, steps of 0.1) the member sweep is
 also held against the plain version in complex128 within 5e-6, which float32
-products meet and single-pass TF32 products (~7e-5) fail. This file imports
-nothing of JAX.
+products meet and single-pass TF32 products (~7e-5) fail. The benchmark's
+cell ``qudit_member_sweep`` (solve dim 64) is held to one member-sweep launch
+a call on ``sweep_engine="auto"``, with B3's span attributes. This file
+imports nothing of JAX.
 """
 import json
 
@@ -136,6 +138,48 @@ def test_member_kernel_rejects(cuda):
     args = member_problem(msw.MAX_N_MAGNUS3 + 1, 2, 1, 3, False, cuda)
     with pytest.raises(ValueError, match="n <= 64"):
         msw.sweep_expm_magnus2_member(*args, dt=0.1, magnus=3)
+
+
+def test_the_qudit_cells_call_launches_b3_once(cuda):
+    """The benchmark's cell ``qudit_member_sweep`` at full size (solve dim
+    64, 10,240 members, 400 Magnus-3 steps), ``sweep_engine`` left at
+    ``"auto"``: one B3 launch a call, B3's ``sweep.engine`` attributes and
+    ``member.step_lanes``, and density matrices of unit trace."""
+    import sys
+    from pathlib import Path
+
+    from qiskit_dynamics_tpu_torch.utils import metrics
+
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from portbench import model as model_mod
+    from portbench import program, spec
+    from portbench.traffic import Traffic
+
+    cell = spec.load_cell("qudit_member_sweep")
+    prog = program.Program(model_mod.build(cell.config), cell.traffic, cuda)
+    amps = Traffic(cell.traffic, 2**31 + 23, cuda).amplitudes(0)
+    prog.call(amps)  # builds B3
+    torch.cuda.synchronize()
+    metrics.disable_metrics(clear=True)
+    metrics.enable_metrics()
+    try:
+        for _ in range(2):
+            y, _ = prog.call(amps)
+        torch.cuda.synchronize()
+        assert launches("member_sweep_launch") == 2
+        records = metrics.span_records()
+        assert [r.attrs["engine"] for r in records if r.name == "sweep.call"] == 2 * ["member"]
+        engines = [r.attrs for r in records if r.name == "sweep.engine"]
+        assert engines == 2 * [dict(n=64, k=1, magnus=3, hermitian=False, steps=400,
+                                    members=10_240)]
+        assert metrics.counters()["member.step_lanes"] == 2 * 400 * 10_240
+    finally:
+        metrics.disable_metrics(clear=True)
+    assert y.shape == (10_240, 8, 8) and bool(torch.isfinite(y).all())
+    traces = torch.diagonal(y, dim1=-2, dim2=-1).sum(-1)
+    assert float((traces - 1).abs().max()) < 1e-4
 
 
 @pytest.mark.parametrize("order", [1, 8, 12, 20])
